@@ -1,10 +1,14 @@
 """Size the raster / shadow-raster tile budgets so the idle-patrol bench
-counters hit zero: steps the bench trajectory on CPU (post-bf16-fix the
-CPU and TPU trajectories track), then evaluates the binning overflow at
-several budgets per window boundary."""
+counters hit zero: steps the bench trajectory on CPU (with full-f32
+matrix composes the CPU and accelerator trajectories track), then
+evaluates the binning overflow at several budgets per window boundary.
+
+Run from the repository root: python debug_logs/diag_budgets.py"""
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 import jax
 

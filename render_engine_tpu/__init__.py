@@ -1,6 +1,7 @@
-"""render_engine_tpu — a TPU-native simulation & deferred-render engine in JAX.
+"""render_engine_tpu — a simulation & tiled deferred-render engine in JAX.
 
-A brand-new, TPU-first engine with the capabilities of the Rust/OpenGL reference
+An accelerator-first engine (NVIDIA GPUs; the CPU for tests) with the
+capabilities of the Rust/OpenGL reference
 (Binyamin-Brion/render_engine): an entity-component system stepped as one jitted
 world tick over structure-of-arrays jnp state, a spatial-hash world with frustum-
 and distance-gated execution, user-defined render systems binding Pallas kernels

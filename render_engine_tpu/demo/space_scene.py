@@ -147,7 +147,7 @@ def user_collision_logic(world, other_idx, mask, cs, other_type=None):
 
     ``other_type`` rides the engine's compacted contact rows — the
     ``world["type_id"][other_idx]`` fallback is a full-capacity 1-D int
-    gather that lands in TPU scalar memory (~0.25 ms per pair slot)."""
+    gather per pair slot)."""
     if other_type is None:
         other_type = world["type_id"][other_idx]
     hit_wormhole = mask & (other_type == TYPE_WORMHOLE)
@@ -278,7 +278,7 @@ def build_scene(engine: Engine, num_asteroids: int = 40, seed: int = 42,
     station_model = bb.add_obj("station", obj_path,
                                atlas_builder=atlas_builder)
     if not normal_maps:
-        # A/B knob for TPU measurement: dropping the normal-map role keeps
+        # A/B knob for measurement: dropping the normal-map role keeps
         # the 48-wide packed rows (normal maps force 64, see raster_pallas
         # channel layout); BENCH_NORMAL_MAPS=0 flips it from bench.py
         for d in bb._mats:
@@ -447,10 +447,7 @@ def space_config(
     # MOST one new map per frame (shadow_flow.rs:111-133) — staleness
     # grows with light count there (N lights = N-frame refresh), so a
     # skip interval is the same tradeoff on the time axis. At interval 3
-    # each of the demo's 2 lights refreshes every 6 frames (~86 ms at the
-    # 70 FPS it buys — the staleness the reference would have at 6
-    # lights); TPU sweep: interval 2 = 67.7-68.0 FPS, interval 3 = 69.9
-    # (recorded 70.1), both zero-drop. BENCH_SHADOW_INTERVAL sweeps it.
+    # each of the demo's 2 lights refreshes every 6 frames.
     # Tiny CI targets keep the per-frame cadence so scheduling tests see it.
     if shadow_update_interval is None:
         shadow_update_interval = 3 if height >= 240 else 1
@@ -477,7 +474,6 @@ def space_config(
         collision_large_budget=collision_large_budget,
         render=RenderSettings(width=width, height=height, max_tris=max_tris,
                               max_point_lights=8, max_spot_lights=8,
-                              fused_shading=True,
                               light_tile_budget=(light_tile_budget or 0),
                               # space scenes are mostly sky: compact the
                               # latency-bound PCF/texture gathers to the

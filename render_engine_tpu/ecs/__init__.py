@@ -1,6 +1,6 @@
 """Entity Component System as structure-of-arrays jnp state.
 
-TPU-native redesign of the reference ECS (src/objects/ecs.rs): instead of a
+Array-native redesign of the reference ECS (src/objects/ecs.rs): instead of a
 per-type byte blob + sparse map + free list, every component is a fixed-
 capacity ``(CAP, ...)`` jnp array, entity liveness is a boolean mask, and the
 per-entity "which components are written" bitset (ecs.rs:57) is a uint32

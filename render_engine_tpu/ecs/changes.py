@@ -6,7 +6,7 @@ Delete, MakeObjectStatic, WakeUp, Add/RemoveSortable, ... reference
 src/objects/entity_change_request.rs:9-27) applied later by ``apply_change``
 (src/helper_things/entity_change_helpers.rs:32-189).
 
-TPU-native redesign: a ``ChangeSet`` is a pytree of dense masked updates —
+Array-native redesign: a ``ChangeSet`` is a pytree of dense masked updates —
 no dynamic-length lists, no serialization. Each variant maps to:
 
   * Modify(component)      -> (values, mask) pair per component name
@@ -244,8 +244,8 @@ def apply_changeset(world: World, cs: ChangeSet) -> World:
     for _ in range(OWNED_CASCADE_ROUNDS):
         valid = anc >= 0
         anc_c = jnp.clip(anc, 0, cap - 1)
-        # one f32 ROW gather per round (separate 1-D bool/int gathers land
-        # in TPU scalar memory at ~5x the cost; ids < 2^24 round-trip f32)
+        # one f32 ROW gather per round instead of separate 1-D bool/int
+        # gathers (ids < 2^24 round-trip f32 exactly)
         tbl = jnp.stack(
             [dead.astype(jnp.float32), anc.astype(jnp.float32)], axis=1)
         g = tbl[anc_c]

@@ -1,6 +1,6 @@
 """The World: one fixed-capacity SoA pytree holding every entity.
 
-TPU-native redesign of the reference ECS (src/objects/ecs.rs:61-745). The
+Array-native redesign of the reference ECS (src/objects/ecs.rs:61-745). The
 mapping (see SURVEY.md section 7):
 
   * byte-blob columns + sparse maps  ->  ``(CAP, ...)`` jnp arrays per component

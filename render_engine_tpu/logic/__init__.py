@@ -1,6 +1,6 @@
 """The world tick: kinematics, collisions, per-type logic dispatch.
 
-TPU-native redesign of the reference's LogicFlow (src/flows/logic_flow.rs)
+Array-native redesign of the reference's LogicFlow (src/flows/logic_flow.rs)
 and its deferred-change machinery: the whole tick is one jitted pure function
 ``world', camera' = step(world, camera, inputs, dt, rng)`` — rayon chunks,
 change-request vectors and the adaptive serial/parallel scheduler

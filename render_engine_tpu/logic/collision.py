@@ -1,6 +1,6 @@
 """Collision detection: grid candidate windows + vectorized AABB tests.
 
-TPU-native port of the reference's handle_collisions
+Array-native port of the reference's handle_collisions
 (src/flows/logic_flow.rs:454-655): bucket moved entities by section, find
 related entities via the tree, apply a camera-distance cutoff, AABB-intersect,
 then invoke per-type collision callbacks with (self, other) asymmetry. Here:
@@ -98,9 +98,9 @@ class CollisionResult:
         colliding pairs beyond slot ``k``. ``other_type`` carries each
         contact's type id compacted from the candidate rows — callbacks
         that filter by the other entity's type must use it instead of
-        ``world["type_id"][other_idx]`` (a full-capacity 1-D int gather
-        lands in TPU scalar memory at ~0.25 ms per callback slot; the type
-        channel rides the SAME row scatter for free).
+        ``world["type_id"][other_idx]`` (a full-capacity 1-D int gather per
+        callback slot; the type channel rides the SAME row scatter for
+        free).
 
         This is the per-PAIR delivery of the reference's handle_collisions
         (logic_flow.rs:537-655): every colliding (self, other) pair fires
@@ -110,12 +110,11 @@ class CollisionResult:
         (disjoint from the compact rows by construction).
 
         Compact-then-scatter: each slot j is the column whose 1-based hit
-        rank equals j+1 — k lane-dim argmax reduces compact the (Q, K)
+        rank equals j+1 — k last-axis argmax reduces compact the (Q, K)
         table to (Q, k) per query ON-ROW, then ONE (Q, 3k) f32 row scatter
         (others | masks | contact types) lands the rows in entity space. The previous formulation scattered
         every (query, candidate) cell into a flat (CAP*k,) int32/bool pair
-        — a ~229k-element 1-D scatter that lands in TPU scalar memory and
-        measured 3.9 ms/frame on the device trace; the row form is the
+        — a ~229k-element 1-D element scatter; the row form is the
         (N, C) f32 row-table layout from the perf model."""
         cap = world.capacity
         payload = jnp.concatenate(
@@ -243,10 +242,9 @@ def find_collisions(
     rows, valid, cell_dropped = G.neighbor_candidate_rows(
         grid, grid.keys[qidx], cfg, table[grid.perm], per_cell_budget
     )  # (Q, K, 10)
-    # channel-leading view: per-channel [..., c] slices of the (Q, K, 10)
-    # rows are LANE-selects (measured 0.7 ms of cross-lane shuffles at
-    # (1024, 216)); one transpose up front makes every channel a cheap
-    # (Q, K) plane with K in the lane dim
+    # channel-leading view: one transpose up front makes every channel a
+    # contiguous (Q, K) plane instead of a strided [..., c] slice of the
+    # (Q, K, 10) rows
     ch = jnp.moveaxis(rows, -1, 0)  # (10, Q, K)
     cand = ch[0].astype(jnp.int32)
     alive_c = ch[1] > 0.5
@@ -255,8 +253,7 @@ def find_collisions(
     if lb > 0:
         valid = valid & ~(ch[9] > 0.5)  # large cands live in the columns
 
-    # AABB intersect per axis on (Q, K) planes (A.intersects over a
-    # trailing vec3 would re-pad the lane dim)
+    # AABB intersect per axis on (Q, K) planes (no trailing vec3 axis)
     qmn, qmx = mn[qidx], mx[qidx]  # (Q, 3)
     hit = valid
     for a in range(3):

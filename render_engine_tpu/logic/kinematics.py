@@ -70,9 +70,8 @@ def refresh_transforms(world: World, model_aabb_min, model_aabb_max,
     (the user/camera entity's camera-coupled AABB, pipeline.rs:125-144).
 
     PERF NOTE: the reference materializes a TransformationMatrix per entity;
-    a (CAP, 4, 4) array is poison on TPU (the trailing (4,4) dims tile to
-    (8,128) — a 32x padding blowup, measured as the single biggest cost in
-    the world tick). TRS therefore composes ON THE FLY wherever needed
+    here a (CAP, 4, 4) array would be written and re-read every tick for
+    no consumer. TRS therefore composes ON THE FLY wherever needed
     (here via direct quaternion rotation of the 8 AABB corners; in the
     geometry stage per vertex). The ``transform`` component column remains
     for user reads via ``world_transforms`` but is not maintained per frame.
@@ -86,8 +85,7 @@ def refresh_transforms(world: World, model_aabb_min, model_aabb_max,
     obj_mx = jnp.where(no_model[:, None], jnp.full(3, half), obj_mx)
 
     # AABB of the rotated box via |R| columns — exact, and avoids
-    # materializing (CAP, 8, 3) corners (another trailing-small-dims array
-    # the TPU would pad ~40x). For center c, half-extent h, rotation R,
+    # materializing (CAP, 8, 3) corners. For center c, half-extent h, rotation R,
     # scale s: center' = R(s*c) + p;  half' = sum_j |R e_j| * s_j * h_j.
     quat = world["orientation"]
     scale = world["scale"]

@@ -9,7 +9,7 @@ aabb_out_of_bounds, conservative distance_to_aabb via bounding sphere).
 Design: instead of an AABB struct of three min/max ranges, an AABB here is a
 pair of ``(..., 3)`` float32 arrays ``(mn, mx)``. All ops broadcast over the
 leading axes, so "transform every entity's AABB" is a single vectorized call —
-the TPU-native idiom replacing the reference's per-entity method calls.
+the array-native idiom replacing the reference's per-entity method calls.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ mouse rotation with pitch clamps :221-260, inertial ``float_position``
 movement :174-180, ``SerializableCameraInfo`` for replay :48-53, and the full
 ``CameraBuilder`` :271-581).
 
-TPU-native design: the camera is an immutable dataclass of jnp scalars/vectors
+Array-native design: the camera is an immutable dataclass of jnp scalars/vectors
 registered as a pytree, so it can be carried through the jitted frame step and
 recorded bit-exactly in the replay log (serialize = flatten to one f32 vector).
 All mutation helpers return a new Camera.

@@ -4,7 +4,7 @@ Replaces the reference's nalgebra-glm math and its per-entity
 TransformationMatrix recomputation (reference
 src/helper_things/entity_change_helpers.rs:217-262,
 src/exports/entity_transformer.rs:77-143). Everything broadcasts over leading
-batch axes: composing 100k entity matrices is one fused op on the VPU/MXU.
+batch axes: composing 100k entity matrices is one fused op.
 
 Conventions (we own them — this is not a GL port, but we keep GL clip space so
 the reference's frustum/PCF math carries over unchanged):
@@ -19,15 +19,14 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# TPU matmul DEFAULT precision rounds f32 inputs to bf16 (one MXU pass).
-# That is correct for the big raster/shade resolve dots (they tolerate it by
-# construction) but silently corrupts COORDINATE math: measured on the v5e,
-# a `proj @ view` composed at DEFAULT put the Gribb-Hartmann far plane
-# (r3 - r2, catastrophic cancellation at far/near = 400) off by ~143 world
-# units, flipping aabb_in_frustum for casters 100+ units INSIDE the volume
-# (debug_logs/diag_caster_volume.py; CPU f32 was exact all along). Every
-# matrix compose / point transform here pins full-f32 (HIGHEST) — their
-# FLOPs are trivial, the error is not.
+# A float32 matmul at DEFAULT precision may run in reduced precision on an
+# accelerator (TF32 on NVIDIA tensor cores keeps ~10 mantissa bits). That
+# silently corrupts COORDINATE math: a `proj @ view` composed in reduced
+# precision moves the Gribb-Hartmann far plane (r3 - r2, catastrophic
+# cancellation at far/near = 400) by many world units and flips
+# aabb_in_frustum for casters well inside the volume. Every matrix compose /
+# point transform here pins full f32 (HIGHEST) — their FLOPs are trivial,
+# the error is not.
 MM_PRECISION = jax.lax.Precision.HIGHEST
 
 

@@ -1,6 +1,6 @@
 """Model bank: geometry loading and packed device arrays.
 
-TPU-native redesign of the reference's model storage (src/models/): OBJ/MTL
+Array-native redesign of the reference's model storage (src/models/): OBJ/MTL
 loading (model_storage.rs:116-266), per-model AABBs, level-of-view variants
 (model_definitions.rs:10-59), and instance bookkeeping. Instead of per-model
 VBO uploads behind dirty flags, ALL models live concatenated in one set of

@@ -48,8 +48,8 @@ def pack_spec_shin(spec, shin):
     """Quantize-pack (specular strength, shininess exponent) into ONE f32
     channel for varying-shininess scenes: strength in 1/1024 steps over
     [0, 4), exponent integer-rounded into [1, 2047]. The packed value is
-    an integer below 2^23, so the f32 round-trip is exact and the one-hot
-    MXU resolve transports it losslessly. Every path (jnp golden, tiled
+    an integer below 2^23, so the f32 round-trip is exact and the
+    winner-row resolve transports it losslessly. Every path (jnp golden, tiled
     XLA, fused Pallas) consumes the SAME quantized values (mat_*_eff), so
     path parity is bit-exact."""
     sq = jnp.round(jnp.clip(spec, 0.0, 4.0 - 1.0 / 1024.0) * 1024.0)
@@ -121,9 +121,8 @@ class ModelBank:
     @property
     def tri_packed(self) -> jnp.ndarray:
         """(F, 5) f32 [v0 v1 v2 material transparent]: the geometry stage's
-        per-triangle gather as ONE f32 row (int-typed gathers land in TPU
-        scalar memory at ~5x the cost; ids stay far below 2^24 so the
-        round-trip is exact). Column 4 is the STATIC half of the
+        per-triangle gather as ONE f32 row instead of several int-typed
+        gathers (ids stay far below 2^24 so the round-trip is exact). Column 4 is the STATIC half of the
         transparency routing — material alpha < 1 or a dissolve map
         (geometry.py consumes it instead of re-gathering mat_alpha /
         mat_texture_diss per batch row: two ~0.17 ms scalar-memory gathers

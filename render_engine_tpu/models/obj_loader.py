@@ -182,7 +182,7 @@ def load_obj(path: str):
 
     The parse core runs natively (native/obj_loader.cpp via ctypes, built
     on first use) with this Python implementation as both the semantic
-    specification and the fallback; RE_TPU_NATIVE=0 forces the fallback.
+    specification and the fallback; RE_NATIVE=0 forces the fallback.
     """
     native = _load_obj_native(path)
     if native is not None:

@@ -23,7 +23,7 @@ def _so_path(name: str) -> str:
 
 def load(name: str):
     """Compile (if stale) and dlopen native/<name>.cpp; None on failure."""
-    if os.environ.get("RE_TPU_NATIVE", "1") == "0":
+    if os.environ.get("RE_NATIVE", "1") == "0":
         return None
     if name in _CACHE:
         return _CACHE[name]

@@ -1,6 +1,6 @@
-"""Multi-chip frame rendering: shard_map over image tile rows.
+"""Multi-device frame rendering: shard_map over image tile rows.
 
-The single-chip tiled Pallas frame (render/frame.py tiled_fused_core) runs
+The single-device tiled frame (render/frame.py tiled_fused_core) runs
 unchanged on every rank over its slice of tile ROWS; pallas_call does not
 auto-partition under a sharded jit, so the partitioning is explicit:
 
@@ -11,7 +11,7 @@ auto-partition under a sharded jit, so the partitioning is explicit:
   * shard_map splits the screen into n contiguous row bands; each rank
     shifts triangle y coordinates into its local frame, bins, rasters,
     resolves, and fused-shades ONLY its rows (the same kernels as the
-    single-chip bench), including shadow-slot PCF factors;
+    single-device frame), including shadow-slot PCF factors;
   * the background (starfield/cubemap/clear) is computed in the outer jit
     with row sharding, so each rank receives exactly its band;
   * the output image is row-sharded (P(axis)) — no gather unless the host
@@ -48,14 +48,13 @@ def render_frame_sharded(
     systems=None,
     inputs=None,
     axis_name: str = "world",
-    interpret: bool | None = None,
 ):
     """Deferred-render one frame with tile rows sharded over ``mesh``.
 
     Call under ``jit`` with the world entity-sharded (parallel/mesh.py);
-    returns a row-sharded (H, W, 3) image. Requires fused shading (the
-    production TPU path). ``atlas``: an optional TextureAtlas, replicated
-    to every rank — the texture resolve runs per rank on its own tile
+    returns a row-sharded (H, W, 3) image. Always runs the tile kernels
+    (compiled on the GPU, interpreted on the CPU). ``atlas``: an optional
+    TextureAtlas, replicated to every rank — the texture resolve runs per rank on its own tile
     band (UV interpolation is local-coordinate, so row shifting is safe).
     """
     n = mesh.shape[axis_name]
@@ -66,7 +65,7 @@ def render_frame_sharded(
     hp = band * n
 
     # per-frame user draw callbacks run in the outer (auto-sharded) jit,
-    # exactly like the single-chip path; custom fragment shading rides the
+    # exactly like the single-device path; custom fragment shading rides the
     # fused kernels as a per-rank post-hook (frame._fused_custom_shading)
     draw_ctx = None
     if systems is not None and systems.has_draw_callbacks():
@@ -107,10 +106,12 @@ def render_frame_sharded(
         max_spot=settings.max_spot_lights,
     )
 
-    # background rows for the padded image (extra rows are cropped);
+    # background at the real image size (star and ray positions scale with
+    # the height), padded to the band rows (extra rows are cropped);
     # background_for handles every skybox kind incl. CubemapRows
-    background = SB.background_for(camera, cubemap, hp, w,
+    background = SB.background_for(camera, cubemap, h, w,
                                    settings.clear_color)
+    background = jnp.pad(background, ((0, hp - h), (0, 0), (0, 0)))
     if draw_ctx is not None and draw_ctx.skybox_on is not None:
         background = jnp.where(
             jnp.asarray(draw_ctx.skybox_on, bool), background,
@@ -149,7 +150,7 @@ def render_frame_sharded(
             local, lights, bank, settings, camera,
             width=w, h_total=h, h_local=band, y_off=y_off,
             background=background_rows[0], shadow_state=ss,
-            ent_attrs=ea, atlas=at, interpret=interpret,
+            ent_attrs=ea, atlas=at,
             systems=systems, draw_ctx=draw_ctx, tri_sys=tri_sys,
         )
         return img[None]  # leading rank axis for the sharded output

@@ -1,6 +1,6 @@
 """Deferred rendering stack: geometry -> tile raster -> G-buffer -> lighting.
 
-TPU-native redesign of the reference's GL 4.5 deferred pipeline
+Array-native redesign of the reference's GL 4.5 deferred pipeline
 (src/render_system/, src/render_components/, render_engine_assets/shaders/):
 the GL rasterizer becomes a tile-based software rasterizer (pure-jnp
 reference implementation + Pallas perf kernel), the G-buffer FBO becomes

@@ -15,6 +15,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
+from render_engine_tpu import platform
 from render_engine_tpu.ecs.world import World
 from render_engine_tpu.math import transforms as T
 from render_engine_tpu.models.bank import ModelBank
@@ -38,10 +39,14 @@ class RenderSettings:
     max_point_lights: int = 64
     max_spot_lights: int = 16
     clear_color: tuple = (0.0, 0.0, 0.0)
-    # raster backend: "auto" = Pallas kernel on TPU, jnp elsewhere
+    # render path: "auto" asks the platform switch (render_engine_tpu.
+    # platform: the tiled kernel path on the GPU, the jnp golden path on the
+    # CPU); "tiled" / "jnp" name a path explicitly (tests compare both)
     backend: str = "auto"
-    # fuse interp+lighting into one Pallas kernel (tiled path only)
-    fused_shading: bool = False
+    # tiled path only: shade with the fused Pallas kernel (True), or with
+    # XLA on the tile buffers (False; also taken when a caller passes a
+    # custom ``shadow_factor``, which cannot run inside the kernel)
+    fused_shading: bool = True
     # atlas sampling on the fused path: texture the transparent layer only
     # when asked (each layer costs one full-screen row gather)
     texture_transparent: bool = False
@@ -57,12 +62,10 @@ class RenderSettings:
     # lists): each tile's light loop covers only lights whose influence
     # sphere intersects its view pyramid, bit-identical to the full loop
     # until a tile exceeds this many lights (then counted in
-    # light_tile_overflow). 0 = off (loop every light per tile).
-    # Default JUSTIFIED off: the dense loop already runs only the LIVE
-    # light count, so scenes with a handful of lights gain nothing and
-    # pay the per-frame tile cull. TPU-measured at 256 point lights
-    # (lights_sweep.json): 0 -> 61.0 FPS, 96 -> 68.7 with zero overflow
-    # — set ~96 for many-light scenes (run_benchmarks.py does).
+    # light_tile_overflow). 0 = off (loop every light per tile): the
+    # dense loop already runs only the LIVE light count, so scenes with a
+    # handful of lights gain nothing and pay the per-frame tile cull;
+    # many-light scenes set ~96 (run_benchmarks.py's lights config does).
     light_tile_budget: int = 0
 
     def __hash__(self):
@@ -76,22 +79,15 @@ class RenderSettings:
 
 
 def pick_rasterizer(backend: str = "auto"):
-    """Select the depth/winner rasterizer implementation."""
-    import jax
-
+    """Select the depth/winner rasterizer implementation (the tile kernel
+    or the jnp reference) through the platform switch."""
     from render_engine_tpu.render.raster_pallas import (
         rasterize_depth_winner_pallas,
     )
 
-    if backend == "pallas":
+    if platform.use_tiled_path(backend):
         return rasterize_depth_winner_pallas
-    if backend == "jnp":
-        return rasterize_depth_winner
-    return (
-        rasterize_depth_winner_pallas
-        if jax.default_backend() == "tpu"
-        else rasterize_depth_winner
-    )
+    return rasterize_depth_winner
 
 
 def _gate_skybox(background, skybox_on, settings):
@@ -331,8 +327,8 @@ def _unproject_tiled(d, tiles_x, th, twd, width, height, inv_pv,
     ``tids``: optional tile ids when ``d`` is a compacted tile subset.
     ``stride``: when ``d`` is already a pixel-subsampled tile (every
     stride-th pixel, phase 0), generate the matching strided centers —
-    identical values to unprojecting full tiles then striding, without the
-    lane-dim relayout that striding a computed array costs."""
+    identical values to unprojecting full tiles then striding, without
+    striding a computed array."""
     nt = d.shape[0]
     if tids is None:
         tids = jnp.arange(nt, dtype=jnp.int32)
@@ -357,10 +353,8 @@ def _texture_override(res, atlas, tiles_x, th, twd, tids=None,
                       with_spec=False, with_emis=False, with_norm=False,
                       with_diss=False):
     """Per-pixel textured albedo from the resolve channels: barycentric UV
-    interpolation (elementwise) + ONE bilinear row gather from the atlas.
-    Full resolution: a lane-strided ::2 subsample of the channel array was
-    measured at 30 ms (TPU lane-dim strides force relayouts) — far slower
-    than simply gathering every pixel (~7 ms).
+    interpolation (elementwise) + ONE bilinear row gather from the atlas,
+    at full resolution.
     ``tids``: optional (NT_sel,) tile ids when ``res`` is a compacted tile
     subset. Returns (4, NT[_sel], th, tw): [rgb | flag]; with
     ``with_spec`` (5, ...): [rgb | flag | spec DELTA]; with ``with_emis``
@@ -525,8 +519,8 @@ def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
     buffer, -1 = not selected, treated as lit). Rows are gathered ONLY for
     tiles that conservatively intersect the slot's light frustum.
 
-    The PCF row gather is latency-bound (~10 ns/row) so the win is per-slot
-    ROW reduction: a spot light's frustum covers a fraction of the screen,
+    The PCF row gather is latency-bound, so the win is per-slot ROW
+    reduction: a spot light's frustum covers a fraction of the screen,
     and any tile fully outside it is exactly lit (pcf_factor's ``inside``
     mask returns 1 there) — culling those tiles is lossless. The test is
     conservative in clip space: the tile's screen rect x its covered-pixel
@@ -535,8 +529,9 @@ def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
     cannot contain a shadowed pixel. Per slot, the densest intersecting
     tiles fill a static budget of round(NT * frac); overflow degrades to
     lit (counted in drop stats as shadow_tile_overflow). The compact form
-    feeds the fused kernel via scalar-prefetch tile indexing — the dense
-    (S, NT, th, tw) factor image is never materialized in HBM."""
+    feeds the fused kernel, whose programs read their own tile's inverse
+    map rows — the dense (S, NT, th, tw) factor image is never
+    materialized in device memory."""
     from render_engine_tpu.render import shadows as SHD
 
     nt = d.shape[0]
@@ -546,9 +541,9 @@ def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
                                          h_total, y_off)
 
     k = shadow.pcf_scale
-    # pcf_scale subsample ONCE, shared by every slot (striding the lane dim
-    # forces a relayout — pay it once on the depth image, not per slot on
-    # the 3x-wider unprojected positions), flattened so per-slot tile
+    # pcf_scale subsample ONCE, shared by every slot (once on the depth
+    # image, not per slot on the 3x-wider unprojected positions),
+    # flattened so per-slot tile
     # selection is one contiguous row gather. The subsampled pixels' camera
     # NDC x/y ride the SAME (NT, 3*sh*sw) row table, so each slot's cond
     # is one row gather + the composed-matrix transform — the per-slot
@@ -625,7 +620,7 @@ def _per_slot_factor_tiles(shadow, d, wn, tiles_x, th, twd, width, h_total,
 def _fused_custom_shading(shaded, s, d, wn, rows, cfg, tri_sys, camera,
                           lights, systems, uniform_writes, bank, atlas,
                           tiles_x, th, twd, width, h_total, y_off,
-                          interpret, out_base=0, textured=True):
+                          out_base=0, textured=True):
     """Custom fragment shading on the fused path — a post-kernel hook.
 
     The fused kernel resolves winner attributes in-kernel and never
@@ -650,7 +645,7 @@ def _fused_custom_shading(shaded, s, d, wn, rows, cfg, tri_sys, camera,
     from render_engine_tpu.render.render_system import shade_systems_color
 
     nt = s.shape[0]
-    res = RP.resolve_attributes_pallas(s, rows, cfg, interpret=interpret)
+    res = RP.resolve_attributes(s, rows)
     ch = res.reshape(res.shape[0], nt * th, twd)
     d_t = d.reshape(nt * th, twd)
     wn_t = wn.reshape(nt * th, twd)
@@ -705,7 +700,7 @@ def _fused_custom_shading(shaded, s, d, wn, rows, cfg, tri_sys, camera,
 def tiled_fused_core(
     batch, lights, bank, settings: RenderSettings, camera, *,
     width, h_total, h_local, y_off, background, shadow_state, ent_attrs,
-    atlas=None, interpret=None, systems=None, draw_ctx=None, tri_sys=None,
+    atlas=None, systems=None, draw_ctx=None, tri_sys=None,
 ) -> jnp.ndarray:
     """Raster + resolve + fused shading over tiles covering global image
     rows [y_off, y_off + h_local). ``batch.xy`` must be in LOCAL pixel
@@ -729,12 +724,12 @@ def tiled_fused_core(
     rows = RP._gather_candidate_rows(packed, cand)  # (NT, K, A)
     d, wn, s, td, twn, ts = RP._launch(
         batch, h_local, width, cfg, tri_class, two_pass=True,
-        interpret=interpret, cand=cand, counts=counts, rows=rows,
+        cand=cand, counts=counts,
     )
     # NOTE: no full-frame attribute resolve here — the fused shading kernel
-    # resolves winner attributes in-kernel from ``rows`` (the ~330 MB/layer
-    # channel images never touch HBM). Only texture-selected tiles get a
-    # small explicit resolve below for UV interpolation.
+    # resolves winner attributes in-kernel from ``rows`` (the per-layer
+    # channel images never touch device memory). Only texture-selected
+    # tiles get a small explicit resolve below for UV interpolation.
 
     albedo_override = None
     if atlas is not None:
@@ -759,9 +754,8 @@ def tiled_fused_core(
         n_ovr = n_base + (4 if with_norm else 0)
         # tiles with any textured CANDIDATE (conservative superset of
         # textured winners — avoids resolving every tile just to test).
-        # One masked lane-dim max over the row table instead of one
-        # strided channel select per role: each [..., c] is a cross-lane
-        # shuffle over the full (NT, B, C) table, the reduce is one pass.
+        # One masked max over the row table's channel axis instead of one
+        # strided channel select per role: the reduce is one pass.
         tex_ch = [35]
         if with_spec:
             tex_ch.append(40)
@@ -778,8 +772,7 @@ def tiled_fused_core(
 
         def textured(slot):
             if ttb >= ntt:
-                res = RP.resolve_attributes_pallas(slot, rows, cfg,
-                                                   interpret=interpret)
+                res = RP.resolve_attributes(slot, rows)
                 return _texture_override(res, atlas, tiles_x, th, twd,
                                          with_spec=with_spec,
                                          with_emis=with_emis,
@@ -788,8 +781,7 @@ def tiled_fused_core(
             order = jnp.argsort(jnp.where(tex_cand, 0, 1).astype(jnp.int32),
                                 stable=True).astype(jnp.int32)
             sel = order[:ttb]
-            res_sel = RP.resolve_attributes_pallas(
-                slot[sel], rows[sel], cfg, interpret=interpret)
+            res_sel = RP.resolve_attributes(slot[sel], rows[sel])
             ovr_sel = _texture_override(res_sel, atlas, tiles_x, th,
                                         twd, tids=sel, with_spec=with_spec,
                                         with_emis=with_emis,
@@ -839,7 +831,7 @@ def tiled_fused_core(
         rows, s, ts, d, td, lights, camera.position, inv_pv,
         tiles_x, width, h_total, slot_factor_tiles=sft,
         slot_factor_inv=sfi, slot_entity=sent,
-        pixel_origin=(0.0, y_off), interpret=interpret,
+        pixel_origin=(0.0, y_off),
         albedo_override=albedo_override, tile_lights=tile_lights,
         with_norm=atlas is not None and bank.has_normal_maps(),
         with_diss=atlas is not None and bank.has_dissolve_maps(),
@@ -852,15 +844,14 @@ def tiled_fused_core(
         uw = None if draw_ctx is None else draw_ctx.uniform_writes
         shaded = _fused_custom_shading(
             shaded, s, d, wn, rows, cfg, tri_sys, camera, lights, systems,
-            uw, bank, atlas, tiles_x, th, twd, width, h_total, y_off,
-            interpret)
+            uw, bank, atlas, tiles_x, th, twd, width, h_total, y_off)
         # the user program shades the transparent layer too
         # (render_system.rs:501 runs the user transparency draw through
         # the same generated program): rewrite t_lit (channels 3:6)
         shaded = _fused_custom_shading(
             shaded, ts, td, twn, rows, cfg, tri_sys, camera, lights,
             systems, uw, bank, atlas, tiles_x, th, twd, width, h_total,
-            y_off, interpret, out_base=3,
+            y_off, out_base=3,
             textured=settings.texture_transparent
             or (atlas is not None and bank.has_dissolve_maps()))
 
@@ -888,10 +879,10 @@ def _render_frame_pallas_tiled(
     cubemap, atlas, shadow_state, shadow_factor, batch, ent_attrs=None,
     systems=None, draw_ctx=None,
 ) -> jnp.ndarray:
-    """Pallas frame in tiled layout: all shading math runs on the
-    contiguous (NT*th, tw) view of the tile buffers (zero transposes); only
-    the final color + compose masks untile. Cuts hundreds of MB of
-    transpose traffic per frame at 1080p."""
+    """Tiled frame: the tile raster kernel, then either the fused shade
+    kernel or XLA shading on the contiguous (NT*th, tw) view of the tile
+    buffers (zero transposes); only the final color + compose masks
+    untile."""
     from render_engine_tpu.render import raster_pallas as RP
 
     cfg = settings.raster
@@ -937,11 +928,11 @@ def _render_frame_pallas_tiled(
     packed = RP._packed_tri_table(batch, bank, tri_class, ent_attrs=ent_attrs)
     rows = RP._gather_candidate_rows(packed, cand)  # (NT, K, A)
     d, wn, s, td, twn, ts = RP._launch(
-        batch, h, w, cfg, tri_class, two_pass=True, interpret=None,
-        cand=cand, counts=counts, rows=rows,
+        batch, h, w, cfg, tri_class, two_pass=True,
+        cand=cand, counts=counts,
     )
-    res_o = RP.resolve_attributes_pallas(s, rows, cfg)  # (A, NT, th, tw)
-    res_t = RP.resolve_attributes_pallas(ts, rows, cfg)
+    res_o = RP.resolve_attributes(s, rows)  # (A, NT, th, tw)
+    res_t = RP.resolve_attributes(ts, rows)
 
     a_dim = res_o.shape[0]
 

@@ -12,7 +12,7 @@ triangle list for the whole frame:
      (the ModelId bit-25-31 LoV adjustment, model_definitions.rs:31-49),
   3. expand (entity, model) -> triangles with a cumsum + searchsorted
      "ragged repeat" (static shape, budget ``max_tris``),
-  4. transform to clip space on the MXU (one big batched matmul),
+  4. transform to clip space (one big batched matmul),
   5. emit screen-space vertices + per-triangle attributes for the raster.
 
 Everything is static-shape; triangles beyond the budget are dropped
@@ -177,7 +177,7 @@ def build_triangle_batch(
     tri_idx = jnp.clip(tri_idx, 0, bank.num_triangles - 1)
 
     # gather model-space geometry (vertex ids + material ride one packed
-    # f32 row — int-typed gathers land in scalar memory)
+    # f32 row instead of separate int-typed gathers)
     trow = bank.tri_packed[tri_idx]  # (T, 5): v0 v1 v2 material transp
     tv = trow[:, 0:3].astype(jnp.int32)
     if depth_only:
@@ -214,7 +214,7 @@ def build_triangle_batch(
         w_nrm = T.quat_rotate(quat[:, None, :],
                               n_obj / safe_scale[:, None, :])
 
-    # world -> clip (MXU) -------------------------------------------------
+    # world -> clip -------------------------------------------------------
     ones = jnp.ones(w_pos.shape[:-1] + (1,), jnp.float32)
     homo = jnp.concatenate([w_pos, ones], axis=-1)  # (T, 3, 4)
     clip = jnp.einsum("ij,tnj->tni", pv, homo,
@@ -411,7 +411,7 @@ def triangle_tangents(batch: TriangleBatch):
     handedness (T,))`` from world-space edges and UV deltas (the standard
     per-face derivation the reference's asset contract implies for its
     NORMAL_INDEX texture role, model_definitions.rs:77-81; the reference
-    packs-but-never-samples it, so this is the TPU build going one role
+    packs-but-never-samples it, so this engine goes one role
     further). Degenerate UV mappings return a zero tangent — consumers
     keep the geometric normal there."""
     p = batch.world_pos  # (T, 3, 3)

@@ -20,8 +20,8 @@ compare, 8x128-friendly tile shapes):
      and perspective-correct attributes -> G-buffer.
 
 The Pallas kernel (raster_pallas.py) implements the same contract with the
-tile loop in VMEM; this version is the golden reference and the CPU/test
-path. Both are bit-deterministic.
+tile loop in registers, one GPU program per tile; this version is the
+golden reference and the CPU path. Both are bit-deterministic.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from render_engine_tpu.render.geometry import TriangleBatch
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:
     tile_h: int = 8
-    tile_w: int = 128  # VPU lane width
+    tile_w: int = 128  # 8x128 = 1024 pixels per tile
     tile_budget: int = 128  # binned candidates per tile
     trans_tile_budget: int = 16  # transparent-class candidates per tile
     max_tiles_per_tri: int = 8  # larger triangles go to the global list
@@ -142,7 +142,7 @@ def _bin_triangles(batch: TriangleBatch, cfg: RasterConfig,
 
     # window fill by run-rank SCATTER: each sorted pair knows its window row
     # (its rank within its base's run) directly, so no searchsorted and no
-    # window gather — both land in TPU scalar memory at ~2 ms/frame. Base
+    # window gather. Base
     # runs are contiguous because the sort key is (base << 8) | bucket.
     # Triangle ids ride as f32 (budgets < 2^24: exact) to keep the scatter
     # on the vector path.
@@ -166,17 +166,12 @@ def _bin_triangles(batch: TriangleBatch, cfg: RasterConfig,
         is_trans = None
         tile_of = sbase
         ok = live & (rank < bt)
-    # window fill is ONE scatter-max of 128-lane one-hot rows: each live
-    # pair writes its triangle id into lane rank%128 of row
+    # window fill is ONE scatter-max of 128-wide one-hot rows: each live
+    # pair writes its triangle id into column rank%128 of row
     # (tile, rank//128); ids >= 0 and the window initializes to -1, so max
-    # combines collision-free lanes. The previous form scattered 8-wide
-    # broadcast rows into an (NT*width, 8) buffer and read back lane 0 —
-    # the (…, 8) minor dim occupies 8/128 lanes of every memory tile
-    # (16x padding) and the [:, 0] read is a lane-select relayout of the
-    # whole padded buffer, so its cost scaled with the budget widths
-    # (measured 0.59 ms at widths 96+16 -> 2.97 ms at 112+64; this form
-    # is width-independent up to each 128-lane group).
-    go = -(-bt // 128)  # 128-lane groups per opaque window
+    # combines collision-free columns. The row count is independent of the
+    # budget widths up to each 128-wide group.
+    go = -(-bt // 128)  # 128-wide groups per opaque window
     gt = -(-btr // 128) if classed else 0
     lane = rank % 128
     grp = rank // 128

@@ -1,22 +1,24 @@
-"""Pallas TPU kernel for the rasterizer's tile loop.
+"""Tile rasterizer: a Pallas kernel lowered through Triton.
 
 Same contract as raster_jnp.rasterize_depth_winner (bit-compatible winner
 selection: nearest depth, first-seen wins ties in stable binning order), but
-the per-tile candidate march runs as a Pallas kernel:
+the per-tile candidate march runs as one GPU program per 8x128 screen tile:
 
-  * grid = one program per 8x128 screen tile — a tile IS one VPU register
-    shape, so every edge-function/depth op is a single vector op;
-  * candidate triangle data is pre-gathered per tile (XLA gather) and
-    streamed through VMEM blocks; the inner fori_loop reads per-candidate
-    scalars from SMEM;
-  * depth/winner accumulate in registers across the loop — zero HBM traffic
+  * each program reads its candidates' scalars straight from a row-major
+    (NT, K, 16) table (one XLA row gather builds it; a tile's K rows stay in
+    L1/L2);
+  * the loops run only over the tile's valid candidates (dynamic counts per
+    segment: opaque window, transparent window, global list), where the XLA
+    version marches the full fixed budget for every tile;
+  * depth and winner accumulate in registers; nothing touches device memory
     until the final store.
 
 Binning (bbox -> tile pairs -> sort -> windows) is shared with the jnp
-version: XLA's device sort is already speed-of-light for that stage.
+version. The winner-attribute resolve is a plain gather
+(``resolve_attributes``).
 
-The kernel runs in interpret mode off-TPU so CPU tests exercise the same
-code path.
+On the CPU the kernel runs in interpret mode (render_engine_tpu.platform),
+so the tests exercise the same code path.
 """
 
 from __future__ import annotations
@@ -27,11 +29,17 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
+from render_engine_tpu import platform
 from render_engine_tpu.render.geometry import TriangleBatch
 from render_engine_tpu.render.raster_jnp import RasterConfig, _bin_triangles
 from render_engine_tpu.math import transforms as T
+
+# raster candidate row: x0 y0 x1 y1 x2 y2 z0 z1 z2 class tri_id (f32, exact
+# below 2^24), zero-padded to 16 columns (a 64-byte row)
+RAST_COLS = 16
+NUM_WARPS = 4  # 128 threads over a 1024-pixel tile: 8 pixels per thread
 
 
 def _tile_kernel(
@@ -41,21 +49,18 @@ def _tile_kernel(
     tile_budget: int,
     trans_budget: int,
     two_pass: bool,
-    data_ref,  # SMEM (1, 10, n_cand): x0 y0 x1 y1 x2 y2 z0 z1 z2 classf
-    #            — channel-leading: ROW-major (1, K, 16) SMEM was measured
-    #            4.2x SLOWER in-kernel on the v5e (frame_fused.3 went
-    #            1.11 -> 4.60 ms; Mosaic's per-candidate scalar loads pay
-    #            the 16-float stride), so the host-side channel transpose
-    #            stays
-    ids_ref,  # SMEM (1, 1, n_cand) int32 global tri ids
-    counts_ref,  # SMEM (1, 1, 3) int32: (opaque, transparent, global)
-    depth_ref,  # VMEM (1, tile_h, tile_w) f32
-    winner_ref,  # VMEM (1, tile_h, tile_w) int32
-    slot_ref=None,  # VMEM (1, th, tw) int32: winner's candidate slot
+    data_ref,  # (K, 16) f32 this tile's candidate rows (RAST_COLS layout)
+    counts_ref,  # (3,) int32 (opaque, transparent, global) valid counts
+    depth_ref,  # (tile_h, tile_w) f32
+    winner_ref,  # (tile_h, tile_w) int32 global tri id, -1 empty
+    slot_ref,  # (tile_h, tile_w) int32 winner's candidate slot
     t_depth_ref=None,  # two_pass: transparent-layer outputs
     t_winner_ref=None,
     t_slot_ref=None,
 ):
+    """One program per tile: march this tile's candidates, keeping the
+    nearest depth and its winner in registers. Candidate scalars are read
+    straight from the tile's row-major rows (an L1/L2-resident block)."""
     t = pl.program_id(0)
     oy = (t // tiles_x) * tile_h
     ox = (t % tiles_x) * tile_w
@@ -75,17 +80,17 @@ def _tile_kernel(
     )
 
     def body(k, carry):
-        x0 = data_ref[0, 0, k]
-        y0 = data_ref[0, 1, k]
-        x1 = data_ref[0, 2, k]
-        y1 = data_ref[0, 3, k]
-        x2 = data_ref[0, 4, k]
-        y2 = data_ref[0, 5, k]
-        z0 = data_ref[0, 6, k]
-        z1 = data_ref[0, 7, k]
-        z2 = data_ref[0, 8, k]
-        cls = data_ref[0, 9, k]  # 0 invalid, 1 opaque, 2 transparent
-        tid = ids_ref[0, 0, k]
+        x0 = data_ref[k, 0]
+        y0 = data_ref[k, 1]
+        x1 = data_ref[k, 2]
+        y1 = data_ref[k, 3]
+        x2 = data_ref[k, 4]
+        y2 = data_ref[k, 5]
+        z0 = data_ref[k, 6]
+        z1 = data_ref[k, 7]
+        z2 = data_ref[k, 8]
+        cls = data_ref[k, 9]  # 0 invalid, 1 opaque, 2 transparent
+        tid = data_ref[k, 10].astype(jnp.int32)
 
         l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
         l1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
@@ -121,33 +126,27 @@ def _tile_kernel(
     inf = jnp.full((tile_h, tile_w), jnp.inf, jnp.float32)
     neg = jnp.full((tile_h, tile_w), -1, jnp.int32)
     init = (inf, neg, neg, inf, neg, neg) if two_pass else (inf, neg, neg)
-    # dynamic trip counts: only march candidates that actually exist — the
-    # occupancy win that makes sparse tiles nearly free. Segments:
-    # [0, B) opaque window, [B, B+BT) transparent window, [B+BT, ..) global.
-    n_tile = counts_ref[0, 0, 0]
-    n_trans = counts_ref[0, 0, 1]
-    n_glob = counts_ref[0, 0, 2]
+    # dynamic trip counts: only march candidates that actually exist, so
+    # sparse tiles are nearly free. Segments: [0, B) opaque window,
+    # [B, B+BT) transparent window, [B+BT, ..) global list.
+    n_tile = counts_ref[0]
+    n_trans = counts_ref[1]
+    n_glob = counts_ref[2]
     carry = jax.lax.fori_loop(0, n_tile, body, init)
-
-    def tbody(k, c):
-        return body(tile_budget + k, c)
-
-    carry = jax.lax.fori_loop(0, n_trans, tbody, carry)
-
-    def gbody(k, c):
-        return body(tile_budget + trans_budget + k, c)
-
-    carry = jax.lax.fori_loop(0, n_glob, gbody, carry)
+    carry = jax.lax.fori_loop(tile_budget, tile_budget + n_trans, body,
+                              carry)
+    g0 = tile_budget + trans_budget
+    carry = jax.lax.fori_loop(g0, g0 + n_glob, body, carry)
     if two_pass:
         best_d, best_t, best_k, best_td, best_tt, best_tk = carry
-        t_depth_ref[0] = jnp.where(best_tt >= 0, best_td, 1.0)
-        t_winner_ref[0] = best_tt
-        t_slot_ref[0] = best_tk
+        t_depth_ref[...] = jnp.where(best_tt >= 0, best_td, 1.0)
+        t_winner_ref[...] = best_tt
+        t_slot_ref[...] = best_tk
     else:
         best_d, best_t, best_k = carry
-    depth_ref[0] = jnp.where(best_t >= 0, best_d, 1.0)
-    winner_ref[0] = best_t
-    slot_ref[0] = best_k
+    depth_ref[...] = jnp.where(best_t >= 0, best_d, 1.0)
+    winner_ref[...] = best_t
+    slot_ref[...] = best_k
 
 
 def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None):
@@ -175,46 +174,40 @@ def _candidate_table(batch, cfg, tiles_x, tiles_y, tri_class=None):
     n_glob = jnp.sum(global_list >= 0, dtype=jnp.int32)
     counts = jnp.stack(
         [n_tile, n_trans, jnp.broadcast_to(n_glob, n_tile.shape)], axis=-1
-    )[:, None, :]  # (NT, 1, 3)
+    )  # (NT, 3)
     return cand, counts
 
 
 def _prepare_candidates(batch, cfg, tiles_x, tiles_y, tri_class,
                         cand=None, counts=None, classed=False):
-    """Pre-gather raster scalars for the candidate table. ``tri_class``:
-    (T,) f32 class per triangle (0 excluded, 1 opaque, 2 transparent)."""
+    """Gather the raster's candidate rows: (NT, K, 16) f32 in RAST_COLS
+    layout, plus the (NT, 3) valid counts. ``tri_class``: (T,) f32 class
+    per triangle (0 excluded, 1 opaque, 2 transparent)."""
     if cand is None:
         cand, counts = _candidate_table(
             batch, cfg, tiles_x, tiles_y,
             tri_class if classed else None,
         )
-    # one packed (T, 16) table + one contiguous row gather (separate 1-D
-    # gathers land in TPU scalar memory at ~5x the cost)
     t = batch.budget
+    if t >= 1 << 24:
+        raise ValueError(f"triangle budget {t} exceeds the f32-exact id range")
     x = batch.xy[..., 0]  # (T, 3)
     y = batch.xy[..., 1]
     packed = jnp.concatenate(
         [x[:, 0:1], y[:, 0:1], x[:, 1:2], y[:, 1:2], x[:, 2:3], y[:, 2:3],
          batch.z, tri_class[:, None],
-         jnp.zeros((t, 6), jnp.float32)],
+         jnp.arange(t, dtype=jnp.float32)[:, None],
+         jnp.zeros((t, RAST_COLS - 11), jnp.float32)],
         axis=1,
-    )  # (T, 16)
-    safe = jnp.clip(cand, 0, t - 1)
-    rows = packed[safe]  # (NT, K, 16)
-    # channel-leading (NT, 10, K): the narrow 16-wide gather + this
-    # transpose replace the old wide-row slice+transpose (the kernel needs
-    # channel-leading SMEM — see _tile_kernel's data_ref note)
-    data = jnp.swapaxes(rows[..., :10], 1, 2)
-    ids = jnp.where(cand >= 0, cand, -1)[:, None, :]  # (NT, 1, K)
-    return data, ids, counts
+    )  # (T, RAST_COLS)
+    return _gather_candidate_rows(packed, cand), counts
 
 
 def _packed_tri_table(batch, bank, tri_class, ent_attrs=None, atlas=None):
     """ONE (T, N_ATTR) f32 per-triangle channel table (layout per the
-    N_ATTR comment above). The frame path gathers candidate ROWS from this
-    table — one contiguous 160-byte row gather per candidate instead of
-    ~15 separate scalar gathers (which XLA places in scalar memory at ~5x
-    the cost; measured 15.6 ms -> ~2 ms at 1080p/24k tris).
+    N_ATTR comment below). The frame path gathers candidate ROWS from this
+    table — one contiguous row gather per candidate instead of ~15
+    separate per-channel gathers.
 
     ``ent_attrs``: optional (CAP, 6) per-entity render-system shading rows
     [unlit, boost, tint rgb, alpha_scale] (render_system.entity_shade_attrs)
@@ -329,57 +322,51 @@ def _gather_candidate_rows(packed, cand):
     Empty slots (cand < 0) gather row 0's data unmasked — safe because the
     candidate tables are valid-prefix per segment and the raster kernel's
     dynamic trip counts never read past the valid prefix; the resolve
-    kernel reads only winner slots (always valid)."""
+    gathers only winner slots (always valid)."""
     safe = jnp.clip(cand, 0, packed.shape[0] - 1)
     return packed[safe]  # (NT, K, A) — one contiguous row gather
 
 
-def _launch(batch, height, width, cfg, tri_class, two_pass, interpret,
-            cand=None, counts=None, classed=False, rows=None):
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+def _launch(batch, height, width, cfg, tri_class, two_pass,
+            cand=None, counts=None, classed=False):
+    """Run the tile raster. Returns 3 (or, with ``two_pass``, 6) tiled
+    (NT, th, tw) buffers: depth, winner, slot [, t_depth, t_winner,
+    t_slot]. Compiled on the GPU, interpreted on the CPU (platform)."""
     th, tw = cfg.tile_h, cfg.tile_w
     tiles_x = -(-width // tw)
     tiles_y = -(-height // th)
     nt = tiles_x * tiles_y
 
-    # the raster's candidate channels come from their own NARROW (T, 16)
-    # table gather + transpose in _prepare_candidates — cheaper than
-    # slicing 10 of the wide shade rows (``rows`` stays for signature
-    # compatibility; the wide gather still feeds the shade kernel)
-    del rows
-    data, ids, counts = _prepare_candidates(
+    data, counts = _prepare_candidates(
         batch, cfg, tiles_x, tiles_y, tri_class, cand, counts,
         classed=classed,
     )
-    k = data.shape[2]  # data is channel-leading: (NT, 10, K)
+    k = data.shape[1]
     kernel = functools.partial(_tile_kernel, tiles_x, th, tw,
                                cfg.tile_budget, cfg.trans_tile_budget,
                                two_pass)
     n_out = 6 if two_pass else 3
     out_dtypes = [jnp.float32, jnp.int32, jnp.int32] * (n_out // 3)
-    outs = pl.pallas_call(
+    return pl.pallas_call(
         kernel,
         grid=(nt,),
         in_specs=[
-            pl.BlockSpec((1, 10, k), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, k), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1, 3), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
+            pl.BlockSpec((None, k, RAST_COLS), lambda i: (i, 0, 0)),
+            pl.BlockSpec((None, 3), lambda i: (i, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((1, th, tw), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
+            pl.BlockSpec((None, th, tw), lambda i: (i, 0, 0))
             for _ in range(n_out)
         ],
         out_shape=[
             jax.ShapeDtypeStruct((nt, th, tw), dt) for dt in out_dtypes
         ],
-        interpret=interpret,
-    )(data, ids, counts)
-    return outs  # tiled (NT, th, tw) buffers
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=platform.interpret_kernels(),
+        name="tile_raster",
+    )(data, counts)  # tiled (NT, th, tw) buffers
 
 
 def _untile(a, tiles_y, tiles_x, th, tw, height, width):
@@ -394,7 +381,6 @@ def rasterize_depth_winner_pallas(
     width: int,
     cfg: RasterConfig = RasterConfig(),
     tri_mask: jnp.ndarray | None = None,
-    interpret: bool | None = None,
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Drop-in replacement for raster_jnp.rasterize_depth_winner."""
     if tri_mask is not None:
@@ -403,7 +389,7 @@ def rasterize_depth_winner_pallas(
     th, tw = cfg.tile_h, cfg.tile_w
     tiles_x, tiles_y = -(-width // tw), -(-height // th)
     depth, winner, _slot = _launch(batch, height, width, cfg, tri_class,
-                                   two_pass=False, interpret=interpret)
+                                   two_pass=False)
     u = lambda a: _untile(a, tiles_y, tiles_x, th, tw, height, width)
     return u(depth), u(winner)
 
@@ -413,7 +399,6 @@ def rasterize_two_pass_pallas(
     height: int,
     width: int,
     cfg: RasterConfig = RasterConfig(),
-    interpret: bool | None = None,
 ):
     """Opaque + transparent layers from ONE binning and ONE kernel launch.
 
@@ -429,14 +414,13 @@ def rasterize_two_pass_pallas(
     th, tw = cfg.tile_h, cfg.tile_w
     tiles_x, tiles_y = -(-width // tw), -(-height // th)
     d, w, _s, td, twi, _ts = _launch(batch, height, width, cfg, tri_class,
-                                     two_pass=True, interpret=interpret,
-                                     classed=True)
+                                     two_pass=True, classed=True)
     u = lambda a: _untile(a, tiles_y, tiles_x, th, tw, height, width)
     return u(d), u(w), u(td), u(twi)
 
 
 # ---------------------------------------------------------------------------
-# One-hot MXU resolve: kill the per-pixel attribute gather
+# Winner-attribute resolve
 # ---------------------------------------------------------------------------
 # Channel layout of the per-candidate attribute table (A axis). World
 # position is NOT gathered — it reconstructs from depth + the inverse
@@ -468,40 +452,9 @@ def rasterize_two_pass_pallas(
 #   60:64  its packed atlas rect   (columns 50:64 exist only in scenes
 #          with normal or dissolve maps; they force the 64-wide rows and
 #          carry the lower optional columns too, zeroed when unused)
-N_ATTR_BASE = 48  # padded to a multiple of 8 sublanes
+N_ATTR_BASE = 48  # base row width (columns 0:45 used)
 N_ATTR = 56  # with the emissive pair
 N_ATTR_NORM = 64  # with the normal-map pair + tangent frame
-
-
-def _resolve_kernel(n_attr, tile_h, tile_w,
-                    slot_ref, attrs_ref, occupied_ref, out_ref):
-    """Per tile: winner-slot one-hot (K,{tw}) x attrs (K,A) on the MXU.
-
-    slot_ref: (1, th, tw) int32 winner candidate slots (-1 empty)
-    attrs_ref: (1, K, A) f32 candidate attribute rows (as gathered — the
-        MXU contracts over K directly, so no host-side transpose is needed)
-    occupied_ref: SMEM (1, 1, 1) int32 — 0 means the whole tile is empty
-        (sky / other layer): skip the matmuls entirely
-    out_ref: (A, 1, th, tw) f32 per-pixel winner attributes — channels
-    LEADING so the host-side channels-first view is a free reshape
-    """
-    out_ref[...] = jnp.zeros_like(out_ref)
-
-    @pl.when(occupied_ref[0, 0, 0] > 0)
-    def _():
-        attrs = attrs_ref[0]  # (K, A)
-        k = attrs.shape[0]
-        kio = jax.lax.broadcasted_iota(jnp.int32, (k, tile_w), 0)
-        for r in range(tile_h):  # static unroll: tile_h is 8
-            row = slot_ref[0, r, :]  # (tw,) int32
-            onehot = ((kio == row[None, :]) & (row[None, :] >= 0)).astype(
-                jnp.float32
-            )  # (K, tw)
-            # (A, tw) = attrs^T @ onehot, contracting K on both sides
-            out_ref[:, 0, r, :] = jax.lax.dot_general(
-                attrs, onehot, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
 
 
 def _gbuffer_from_channels(ch, depth, winner, height, width, inv_proj_view,
@@ -618,12 +571,11 @@ def render_gbuffers_pallas(
     height: int,
     width: int,
     cfg: RasterConfig = RasterConfig(),
-    interpret: bool | None = None,
     proj_view: jnp.ndarray | None = None,
 ):
-    """Full Pallas frame raster: ONE binning, ONE raster launch (opaque +
-    transparent layers), one one-hot MXU resolve per layer, zero per-pixel
-    gathers. Returns (gbuf, extras, t_gbuf, t_extras)."""
+    """Full tiled G-buffer: ONE binning, ONE raster launch (opaque +
+    transparent layers), one winner-row gather per layer. Returns (gbuf,
+    extras, t_gbuf, t_extras)."""
     th, tw = cfg.tile_h, cfg.tile_w
     tiles_x, tiles_y = -(-width // tw), -(-height // th)
 
@@ -635,10 +587,10 @@ def render_gbuffers_pallas(
     rows = _gather_candidate_rows(packed, cand)
     d, w, s, td, twi, ts = _launch(
         batch, height, width, cfg, tri_class, two_pass=True,
-        interpret=interpret, cand=cand, counts=counts, rows=rows,
+        cand=cand, counts=counts,
     )
-    res_o = resolve_attributes_pallas(s, rows, cfg, interpret=interpret)
-    res_t = resolve_attributes_pallas(ts, rows, cfg, interpret=interpret)
+    res_o = resolve_attributes(s, rows)
+    res_t = resolve_attributes(ts, rows)
 
     def untile2(a):
         return _untile(a, tiles_y, tiles_x, th, tw, height, width)
@@ -669,36 +621,15 @@ def render_gbuffers_pallas(
     return gbuf, extras, t_gbuf, t_extras
 
 
-def resolve_attributes_pallas(slot_tiled, attrs_rows, cfg,
-                              interpret: bool | None = None):
-    """Run the one-hot resolve kernel. ``slot_tiled``: (NT, th, tw) int32;
-    ``attrs_rows``: (NT, K, A) candidate rows as gathered. Returns
-    (A, NT, th, tw) — channels leading, so ``out.reshape(A, NT*th, tw)`` is
-    a contiguous "tall image" view."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+def resolve_attributes(slot_tiled, attrs_rows):
+    """Gather each pixel's winner row. ``slot_tiled``: (NT, th, tw) int32
+    winner candidate slots (-1 empty); ``attrs_rows``: (NT, K, A) candidate
+    rows as gathered. Returns (A, NT, th, tw), zero where the slot is
+    empty — channels leading, so ``out.reshape(A, NT*th, tw)`` is a
+    contiguous "tall image" view. One gather moves just the winner row."""
     nt, th, tw = slot_tiled.shape
-    k = attrs_rows.shape[1]
     a = attrs_rows.shape[2]
-    occupied = jnp.any(slot_tiled >= 0, axis=(1, 2)).astype(
-        jnp.int32
-    )[:, None, None]  # (NT, 1, 1)
-    kernel = functools.partial(_resolve_kernel, a, th, tw)
-    return pl.pallas_call(
-        kernel,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec((1, th, tw), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, a), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((a, 1, th, tw), lambda i: (0, i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((a, nt, th, tw), jnp.float32)],
-        interpret=interpret,
-    )(slot_tiled, attrs_rows, occupied)[0]
+    slot = slot_tiled.reshape(nt, th * tw, 1)
+    got = jnp.take_along_axis(attrs_rows, jnp.maximum(slot, 0), axis=1)
+    got = jnp.where(slot >= 0, got, 0.0)  # (NT, th*tw, A)
+    return jnp.moveaxis(got, -1, 0).reshape(a, nt, th, tw)

@@ -7,7 +7,7 @@ three user draw callbacks, assembled by a typestate builder chain
 arrays. README pillar 1: "user-defined render systems bound to sets of
 models".
 
-TPU-native redesign (SURVEY.md section 7 mapping): string codegen dissolves
+Array-native redesign (SURVEY.md section 7 mapping): string codegen dissolves
 into Python composition — a ``RenderSystem`` is a *configuration record*
 binding a set of bank models to raster + lighting behaviour:
 
@@ -185,7 +185,7 @@ RECOGNIZED_UNIFORMS = {
 @dataclasses.dataclass(frozen=True)
 class CompiledSystems:
     """Render systems compiled to per-model routing + per-system shading
-    attribute tables — the TPU-native RenderSystem::draw: instead of one
+    attribute tables — the array-native RenderSystem::draw: instead of one
     raster pass per system (render_system.rs:410-595), systems become DATA
     on the one fused raster/resolve/shade pass. G-buffer "reuse across
     systems" is then inherent: there is exactly one G-buffer.
@@ -282,7 +282,7 @@ def entity_shade_attrs(world: World, systems: CompiledSystems,
 
 
 class DrawParam:
-    """Per-frame draw-callback context — the TPU-native DrawParam
+    """Per-frame draw-callback context — the array-native DrawParam
     (exports/rendering.rs:57-396). The reference hands user draw functions
     a handle that issues instanced GL draws filtered by sortable bucket,
     writes uniforms, toggles the skybox, and exposes the ECS / camera /

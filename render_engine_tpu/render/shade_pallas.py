@@ -1,12 +1,14 @@
 """Fused per-tile shading kernel: attribute interpolation + Blinn-Phong.
 
-The tiled frame path's post-resolve stages (_gbuffer_from_channels + two
-lighting.shade passes + transparency blend) are ~150 small XLA ops whose
-per-op overhead dominates at 1080p. This kernel fuses all of it per tile:
-channels stay in VMEM, the light loop runs over a packed SMEM table, and a
-single launch emits [lit rgb | t_lit rgb | alpha | flags].
+A Pallas kernel lowered through Triton, one program per 8x128 tile. It
+replaces the tiled frame path's post-resolve stages (_gbuffer_from_channels
++ two lighting.shade passes + transparency blend): each program gathers its
+pixels' winner rows from the tile's candidate table (the per-pixel channel
+images never reach device memory), loops over the tile's culled light list
+read from the packed light table, and emits [lit rgb | t_lit rgb | alpha |
+flags] in one launch.
 
-Opt-in via RenderSettings(fused_shading=True). Shadows (per-slot PCF
+The tiled path's default (RenderSettings.fused_shading). Shadows (per-slot PCF
 factor tiles), texture-atlas overrides, and per-tile light lists ARE
 threaded through this kernel (frame.py resolves them into per-tile
 inputs). The math mirrors lighting.shade exactly (tested against it).
@@ -34,8 +36,9 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
+from render_engine_tpu import platform
 from render_engine_tpu.math import transforms as T
 from render_engine_tpu.render.lighting import (
     DIFFUSE_FLOOR,
@@ -44,6 +47,7 @@ from render_engine_tpu.render.lighting import (
 )
 
 N_LCOL = 28  # padded row width (21 + shadow budget 6, padded)
+NUM_WARPS = 4  # 128 threads over a 1024-pixel tile: 8 pixels per thread
 
 
 def pack_lights(lights: LightArrays, budget: int, slot_entity=None):
@@ -129,7 +133,7 @@ def pack_lights(lights: LightArrays, budget: int, slot_entity=None):
 def select_tile_lights(ltab, n_live, camera_position, inv_pv, tiles_x,
                        tiles_y, tile_h, tile_w, width, h_total,
                        y_off, budget: int):
-    """Per-tile light lists — the TPU-native light-volume pass.
+    """Per-tile light lists — the tiled light-volume pass.
 
     The reference bounds each point light's screen effect with a sphere
     proxy in the second pass (render_engine_assets/shaders/
@@ -195,7 +199,8 @@ def select_tile_lights(ltab, n_live, camera_position, inv_pv, tiles_x,
     radius = ltab[:, 20]
     live = jnp.arange(ll) < n_live
     always = live & ((kind < 0.5) | (radius <= 0.0))
-    d = jnp.einsum("tpi,li->tpl", planes, lpos)  # (NT, 5, L)
+    d = jnp.einsum("tpi,li->tpl", planes, lpos,
+                   precision=T.MM_PRECISION)  # (NT, 5, L)
     in_pyramid = jnp.all(d >= -radius[None, None, :], axis=1)  # (NT, L)
     mask = always[None, :] | (live[None, :] & in_pyramid)
     mask = mask & live[None, :]
@@ -210,44 +215,45 @@ def select_tile_lights(ltab, n_live, camera_position, inv_pv, tiles_x,
     return tlist, tcount, dropped.astype(jnp.int32)
 
 
-def _interp(ch, px, py, inv_pv, width, height, spec_packed=False):
-    """Per-pixel winner attributes from the channel block (A, th, tw).
+def _interp(ch, px, py, spec_packed=False):
+    """Per-pixel winner attributes from the resolved channels (a callable
+    ``ch(c) -> (th, tw)``).
 
     ``spec_packed``: channel 34 carries the quantized (specular strength,
     shininess exponent) packing of varying-Ns scenes (models/bank.py
     pack_spec_shin) — returns (spec, shin) decoded; otherwise spec is the
     raw strength and shin is None (the caller uses the scene's
     compile-time exponent)."""
-    x0, y0, x1, y1, x2, y2 = ch[0], ch[1], ch[2], ch[3], ch[4], ch[5]
+    x0, y0, x1, y1, x2, y2 = ch(0), ch(1), ch(2), ch(3), ch(4), ch(5)
     l0 = (x2 - x1) * (py - y1) - (y2 - y1) * (px - x1)
     l1 = (x0 - x2) * (py - y2) - (y0 - y2) * (px - x2)
     l2 = (x1 - x0) * (py - y0) - (y1 - y0) * (px - x0)
     area = l0 + l1 + l2
     inv_area = 1.0 / jnp.where(jnp.abs(area) > 1e-12, area, 1.0)
     b0, b1, b2 = l0 * inv_area, l1 * inv_area, l2 * inv_area
-    iw0, iw1, iw2 = ch[25], ch[26], ch[27]
-    w0, w1, w2 = b0 * iw0, b1 * iw1, b2 * iw2
+    w0, w1, w2 = b0 * ch(25), b1 * ch(26), b2 * ch(27)
     denom = w0 + w1 + w2
     inv_d = 1.0 / jnp.where(jnp.abs(denom) > 1e-12, denom, 1.0)
     p0, p1, p2 = w0 * inv_d, w1 * inv_d, w2 * inv_d
 
-    nx = p0 * ch[10] + p1 * ch[13] + p2 * ch[16]
-    ny = p0 * ch[11] + p1 * ch[14] + p2 * ch[17]
-    nz = p0 * ch[12] + p1 * ch[15] + p2 * ch[18]
+    nx = p0 * ch(10) + p1 * ch(13) + p2 * ch(16)
+    ny = p0 * ch(11) + p1 * ch(14) + p2 * ch(17)
+    nz = p0 * ch(12) + p1 * ch(15) + p2 * ch(18)
     nl = jax.lax.rsqrt(jnp.maximum(nx * nx + ny * ny + nz * nz, 1e-24))
+    c34 = ch(34)
     if spec_packed:
         # exact decode (bank.unpack_spec_shin semantics, in-kernel)
-        hq = jnp.floor(ch[34] * (1.0 / 4096.0))
-        spec = (ch[34] - hq * 4096.0) * (1.0 / 1024.0)
+        hq = jnp.floor(c34 * (1.0 / 4096.0))
+        spec = (c34 - hq * 4096.0) * (1.0 / 1024.0)
         shin = hq
     else:
-        spec, shin = ch[34], None
-    return (nx * nl, ny * nl, nz * nl), (ch[29], ch[30], ch[31]), ch[32], \
-        ch[33], spec, shin
+        spec, shin = c34, None
+    return (nx * nl, ny * nl, nz * nl), (ch(29), ch(30), ch(31)), ch(32), \
+        ch(33), spec, shin
 
 
 def _shade_kernel(
-    tiles_x, tile_h, tile_w, n_lights, width, height, n_slots, has_texture,
+    tiles_x, tile_h, tile_w, width, height, n_slots, has_texture,
     ovr_chans,  # override channels per pass: 4 = [rgb|flag], 5 adds the
     #             specular-map DELTA (spec_k multiplies by 1 + delta),
     #             6 adds the emissive-map delta; with_norm appends 4 more
@@ -260,30 +266,24 @@ def _shade_kernel(
     spec_packed,  # static: channel 34 is the quantized (spec, Ns) packing
     shin_const,  # static float: the scene's uniform specular exponent
     #              (used when not spec_packed)
-    inv_ref,  # scalar-prefetch SMEM (max(n_slots,1), NT) int32: per-slot
-    #           tile -> compact factor row (-1 = not selected -> lit).
-    #           Also drives the sf_refs block index maps.
-    rows_ref,  # (1, K, A) candidate attribute rows (as gathered)
-    so_ref, st_ref,  # (1, th, tw) winner candidate slots, opaque/transparent
-    do_ref, dt_ref,  # (1, th, tw) depths
-    ltab_ref,  # SMEM (n_lights, N_LCOL)
-    lcount_ref,  # SMEM (1, 1)
-    tl_ref,  # SMEM (1, 1, LB) int32 this tile's light list (tile-culled)
-    tc_ref,  # SMEM (1, 1, 1) int32 its live count (unused unless
-    #          use_tile_lights)
-    cam_ref,  # SMEM (1, 3) camera position
-    ipv_ref,  # SMEM (4, 4) inverse proj-view
-    org_ref,  # SMEM (1, 2) global pixel origin (x, y) of this buffer —
-    #           nonzero under multi-chip row sharding, where the local
-    #           tile grid starts partway down the global image
-    *rest,  # n_slots x (1, th, tw) compact PCF factor tiles (block-indexed
-    #         by inv_ref via scalar prefetch), then:
-    #         ovr_ref (2*ovr_chans, 1, th, tw) texture overrides
-    #         out_ref (8, 1, th, tw): lit rgb, t_lit rgb, alpha, flags
+    rows_ref,  # (K, A) this tile's candidate attribute rows
+    so_ref, st_ref,  # (th, tw) winner candidate slots, opaque/transparent
+    do_ref, dt_ref,  # (th, tw) depths
+    ltab_ref,  # (L, N_LCOL) packed light table (whole)
+    lcount_ref,  # (1,) live light count
+    tl_ref,  # (LB,) int32 this tile's light list (tile-culled)
+    tc_ref,  # (1,) int32 its live count (unused unless use_tile_lights)
+    cam_ref,  # (3,) camera position
+    ipv_ref,  # (4, 4) inverse proj-view
+    org_ref,  # (2,) global pixel origin (x, y) of this buffer — nonzero
+    #           under multi-device row sharding, where the local tile grid
+    #           starts partway down the global image
+    inv_ref,  # (S, NT) int32 per-slot tile -> compact factor row (whole;
+    #           -1 = not selected -> lit)
+    sft_ref,  # (S, TB, th, tw) compact per-slot PCF factor tiles (whole)
+    ovr_ref,  # (2*ovr_chans, th, tw) this tile's texture overrides
+    out_ref,  # (8, th, tw): lit rgb, t_lit rgb, alpha, flags
 ):
-    sf_refs = rest[:n_slots]
-    ovr_ref = rest[n_slots]
-    out_ref = rest[n_slots + 1]
     t = pl.program_id(0)
     oy = ((t // tiles_x) * tile_h).astype(jnp.float32)
     ox = ((t % tiles_x) * tile_w).astype(jnp.float32)
@@ -296,8 +296,8 @@ def _shade_kernel(
 
     # world position from depth (shared by both layers' shading)
     def unproject(depth):
-        ndc_x = (px + org_ref[0, 0]) / width * 2.0 - 1.0
-        ndc_y = 1.0 - (py + org_ref[0, 1]) / height * 2.0
+        ndc_x = (px + org_ref[0]) / width * 2.0 - 1.0
+        ndc_y = 1.0 - (py + org_ref[1]) / height * 2.0
         cx = (ipv_ref[0, 0] * ndc_x + ipv_ref[0, 1] * ndc_y
               + ipv_ref[0, 2] * depth + ipv_ref[0, 3])
         cy = (ipv_ref[1, 0] * ndc_x + ipv_ref[1, 1] * ndc_y
@@ -309,69 +309,59 @@ def _shade_kernel(
         inv = 1.0 / jnp.where(jnp.abs(cw) > 1e-12, cw, 1.0)
         return cx * inv, cy * inv, cz * inv
 
-    def resolve(slot_ref):
-        """In-kernel one-hot resolve: winner slots -> per-pixel channel
-        block (A, th, tw). Fusing this here (instead of a separate resolve
-        kernel) keeps the ~330 MB/layer channel images out of HBM."""
-        slot = slot_ref[0]  # (th, tw) int32
-        attrs = rows_ref[0]  # (K, A)
-        k = attrs.shape[0]
-        kio = jax.lax.broadcasted_iota(jnp.int32, (k, tile_w), 0)
-        chs = []
-        for r in range(tile_h):  # static unroll: tile_h is 8
-            row = slot[r, :]
-            onehot = ((kio == row[None, :]) & (row[None, :] >= 0)).astype(
-                jnp.float32)  # (K, tw)
-            chs.append(jax.lax.dot_general(
-                attrs, onehot, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32))  # (A, tw)
-        return jnp.stack(chs, axis=1)  # (A, th, tw)
+    # per-slot compact factor rows of THIS tile (scalars, loaded once)
+    slot_rows = [inv_ref[sl, t] for sl in range(n_slots)]
 
-    def shade_layer(slot_ref, depth, covered, use_shadows, ovr_base):
-        ch = resolve(slot_ref)  # (A, th, tw)
+    def shade_layer(slot, depth, covered, use_shadows, ovr_base):
+        # in-kernel resolve: each channel is a gather of the winner rows
+        # from this tile's candidate table (an L1/L2-resident block), so
+        # the per-pixel channel images never touch device memory
+        safe = jnp.maximum(slot, 0)
+
+        def ch(c):
+            return rows_ref[safe, c]
+
         (nx, ny, nz), (ar, ag, ab), emissive, alpha, spec_k, shin = _interp(
-            ch, px, py, None, width, height, spec_packed=spec_packed)
+            ch, px, py, spec_packed=spec_packed)
         if shin is None:
             shin = shin_const
         if has_texture:
             base_chans = ovr_chans - (4 if with_norm else 0)
-            tf = ovr_ref[ovr_base + 3, 0] > 0.5
-            ar = jnp.where(tf, ovr_ref[ovr_base + 0, 0], ar)
-            ag = jnp.where(tf, ovr_ref[ovr_base + 1, 0], ag)
-            ab = jnp.where(tf, ovr_ref[ovr_base + 2, 0], ab)
+            tf = ovr_ref[ovr_base + 3] > 0.5
+            ar = jnp.where(tf, ovr_ref[ovr_base + 0], ar)
+            ag = jnp.where(tf, ovr_ref[ovr_base + 1], ag)
+            ab = jnp.where(tf, ovr_ref[ovr_base + 2], ab)
             if base_chans >= 5:
                 # specular-map delta: neutral (0) for unselected tiles and
                 # spec-less materials, (sample - 1) otherwise
-                spec_k = spec_k * (1.0 + ovr_ref[ovr_base + 4, 0])
+                spec_k = spec_k * (1.0 + ovr_ref[ovr_base + 4])
             if base_chans >= 6:
                 # emissive-map delta, same neutral-zero convention
-                emissive = emissive * (1.0 + ovr_ref[ovr_base + 5, 0])
+                emissive = emissive * (1.0 + ovr_ref[ovr_base + 5])
             if with_diss and base_chans >= 7:
                 # dissolve-map delta: per-pixel alpha (map_d, fifth pair);
                 # only the transparent pass consumes alpha downstream
-                alpha = alpha * (1.0 + ovr_ref[ovr_base + 6, 0])
+                alpha = alpha * (1.0 + ovr_ref[ovr_base + 6])
             if with_norm:
                 # normal-map override: replace the interpolated normal
                 # where the flag is set (unselected tiles stay geometric)
                 nb = ovr_base + base_chans
-                nf = ovr_ref[nb + 3, 0] > 0.5
-                nx = jnp.where(nf, ovr_ref[nb + 0, 0], nx)
-                ny = jnp.where(nf, ovr_ref[nb + 1, 0], ny)
-                nz = jnp.where(nf, ovr_ref[nb + 2, 0], nz)
+                nf = ovr_ref[nb + 3] > 0.5
+                nx = jnp.where(nf, ovr_ref[nb + 0], nx)
+                ny = jnp.where(nf, ovr_ref[nb + 1], ny)
+                nz = jnp.where(nf, ovr_ref[nb + 2], nz)
         wx, wy, wz = unproject(depth)
-        vx = cam_ref[0, 0] - wx
-        vy = cam_ref[0, 1] - wy
-        vz = cam_ref[0, 2] - wz
+        vx = cam_ref[0] - wx
+        vy = cam_ref[1] - wy
+        vz = cam_ref[2] - wz
         vl = jax.lax.rsqrt(jnp.maximum(vx * vx + vy * vy + vz * vz, 1e-24))
         vx, vy, vz = vx * vl, vy * vl, vz * vl
 
-        cr = jnp.zeros((tile_h, tile_w), jnp.float32)
-        cg = jnp.zeros((tile_h, tile_w), jnp.float32)
-        cb = jnp.zeros((tile_h, tile_w), jnp.float32)
+        zero = jnp.zeros((tile_h, tile_w), jnp.float32)
 
         def light_body(i, acc):
             cr, cg, cb = acc
-            li = tl_ref[0, 0, i] if use_tile_lights else i
+            li = tl_ref[i] if use_tile_lights else i
             kind = ltab_ref[li, 0]
             lpx, lpy, lpz = ltab_ref[li, 1], ltab_ref[li, 2], ltab_ref[li, 3]
             ldx, ldy, ldz = ltab_ref[li, 4], ltab_ref[li, 5], ltab_ref[li, 6]
@@ -410,12 +400,16 @@ def _shade_kernel(
             if use_shadows:
                 # per-slot PCF factor, multiplicatively combined over the
                 # slots this light owns (cube faces etc.); tiles outside
-                # the slot's compact selection (inv < 0) are lit
+                # the slot's compact selection (row < 0) are lit. The
+                # factor tile is loaded only for owned, mapped slots.
                 for sl in range(n_slots):
-                    own = ltab_ref[li, 21 + sl]
-                    mapped = (inv_ref[sl, t] >= 0).astype(jnp.float32)
-                    s = s * jnp.where(own * mapped > 0.5,
-                                      sf_refs[sl][0], 1.0)
+                    row = slot_rows[sl]
+                    use = (ltab_ref[li, 21 + sl] > 0.5) & (row >= 0)
+                    s = jax.lax.cond(
+                        use,
+                        lambda s=s, sl=sl, row=row: (
+                            s * sft_ref[sl, jnp.maximum(row, 0)]),
+                        lambda s=s: s * 1.0)
             cr = cr + s * (ltab_ref[li, 13] * ar + ltab_ref[li, 7] * ndl * ar
                            + ltab_ref[li, 10] * spec)
             cg = cg + s * (ltab_ref[li, 14] * ag + ltab_ref[li, 8] * ndl * ag
@@ -424,8 +418,9 @@ def _shade_kernel(
                            + ltab_ref[li, 12] * spec)
             return cr, cg, cb
 
-        n_iter = tc_ref[0, 0, 0] if use_tile_lights else lcount_ref[0, 0]
-        cr, cg, cb = jax.lax.fori_loop(0, n_iter, light_body, (cr, cg, cb))
+        n_iter = tc_ref[0] if use_tile_lights else lcount_ref[0]
+        cr, cg, cb = jax.lax.fori_loop(0, n_iter, light_body,
+                                       (zero, zero, zero))
         cr = jnp.maximum(cr, DIFFUSE_FLOOR * ar)
         cg = jnp.maximum(cg, DIFFUSE_FLOOR * ag)
         cb = jnp.maximum(cb, DIFFUSE_FLOOR * ab)
@@ -433,48 +428,51 @@ def _shade_kernel(
         cr = jnp.where(emi, ar * emissive, cr)
         cg = jnp.where(emi, ag * emissive, cg)
         cb = jnp.where(emi, ab * emissive, cb)
-        cm = covered
-        return (jnp.where(cm, cr, 0.0), jnp.where(cm, cg, 0.0),
-                jnp.where(cm, cb, 0.0), alpha)
+        return (jnp.where(covered, cr, 0.0), jnp.where(covered, cg, 0.0),
+                jnp.where(covered, cb, 0.0), alpha)
 
-    d_o = do_ref[0]
-    d_t = dt_ref[0]
-    cov_o = so_ref[0] >= 0
-    cov_t = st_ref[0] >= 0
+    s_o = so_ref[...]
+    s_t = st_ref[...]
+    d_o = do_ref[...]
+    d_t = dt_ref[...]
+    cov_o = s_o >= 0
+    cov_t = s_t >= 0
     zero = jnp.zeros((tile_h, tile_w), jnp.float32)
+
+    def any_(m):
+        return jnp.max(m.astype(jnp.int32)) > 0
+
     # per-tile coverage gates: sky tiles skip the whole resolve+light loop,
     # and the transparent layer (usually a handful of tiles) only shades
-    # where a transparent candidate actually won a pixel
-    # shadows apply to the opaque (deferred) layer only — the reference's
-    # transparency draw is a forward pass with no shadow sampling
-    # (render_system.rs:501)
+    # where a transparent candidate actually won a pixel. Shadows apply to
+    # the opaque (deferred) layer only — the reference's transparency draw
+    # is a forward pass with no shadow sampling (render_system.rs:501)
     r_o, g_o, b_o, _ = jax.lax.cond(
-        jnp.any(cov_o),
-        lambda: shade_layer(so_ref, d_o, cov_o, n_slots > 0, 0),
+        any_(cov_o),
+        lambda: shade_layer(s_o, d_o, cov_o, n_slots > 0, 0),
         lambda: (zero, zero, zero, zero),
     )
     r_t, g_t, b_t, alpha = jax.lax.cond(
-        jnp.any(cov_t),
-        lambda: shade_layer(st_ref, d_t, cov_t, False, ovr_chans),
+        any_(cov_t),
+        lambda: shade_layer(s_t, d_t, cov_t, False, ovr_chans),
         lambda: (zero, zero, zero, zero),
     )
 
     t_front = cov_t & (d_t <= d_o)
     flags = cov_o.astype(jnp.float32) + 2.0 * t_front.astype(jnp.float32)
-    out_ref[0, 0] = r_o
-    out_ref[1, 0] = g_o
-    out_ref[2, 0] = b_o
-    out_ref[3, 0] = r_t
-    out_ref[4, 0] = g_t
-    out_ref[5, 0] = b_t
-    out_ref[6, 0] = jnp.where(cov_t, alpha, 1.0)
-    out_ref[7, 0] = flags
+    out_ref[0] = r_o
+    out_ref[1] = g_o
+    out_ref[2] = b_o
+    out_ref[3] = r_t
+    out_ref[4] = g_t
+    out_ref[5] = b_t
+    out_ref[6] = jnp.where(cov_t, alpha, 1.0)
+    out_ref[7] = flags
 
 
 def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
                 camera_position, inv_pv, tiles_x, width, height,
                 light_budget: int | None = None,
-                interpret: bool | None = None,
                 slot_factor_tiles=None, slot_factor_inv=None,
                 slot_entity=None,
                 pixel_origin=(0.0, 0.0), albedo_override=None,
@@ -484,25 +482,25 @@ def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
 
     rows: (NT, K, A) gathered candidate attribute rows; s_o/s_t:
     (NT, th, tw) winner candidate slots; d: (NT, th, tw) depths. The
-    one-hot attribute resolve happens IN-KERNEL (the channel images never
-    touch HBM). Returns (8, NT, th, tw): [lit rgb | t_lit rgb | alpha |
-    flags] where flags bit0 = opaque covered, bit1 = transparent in front.
+    winner-attribute resolve happens IN-KERNEL (the channel images never
+    touch device memory). Returns (8, NT, th, tw): [lit rgb | t_lit rgb |
+    alpha | flags] where flags bit0 = opaque covered, bit1 = transparent in
+    front.
 
     ``light_budget`` defaults to the full packed-table size
     (dir+point+spot capacities) so no light is ever truncated.
     ``slot_factor_tiles``: optional COMPACT (S, TB, th, tw) per-shadow-slot
     PCF factor tiles with ``slot_factor_inv`` (S, NT) int32 mapping each
-    screen tile to its compact row (-1 = unselected -> lit). The inverse
-    map rides as a scalar-prefetch operand and block-indexes each slot's
-    factor input, so the dense (S, NT, th, tw) image never exists.
+    screen tile to its compact row (-1 = unselected -> lit). Each program
+    reads its own tile's rows of the inverse map and loads only the factor
+    tiles it needs, so the dense (S, NT, th, tw) image never exists.
     ``slot_entity``: the matching (S,) owner entities. Shadows multiply
     the opaque layer's per-light contribution in-kernel.
     ``tile_lights``: optional (tlist (NT, LB) int32, tcount (NT,) int32)
     from select_tile_lights — the light loop then covers only each tile's
     culled list (bit-identical when nothing overflowed the budget).
+    Compiled on the GPU, interpreted on the CPU (platform).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     if light_budget is None:
         light_budget = (lights.dir_direction.shape[0]
                         + lights.pt_position.shape[0]
@@ -510,19 +508,21 @@ def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
     nt, k, a = rows.shape
     th, tw = s_o.shape[1], s_o.shape[2]
     ltab, n_live = pack_lights(lights, light_budget, slot_entity=slot_entity)
-    lcount = n_live.reshape(1, 1)
-    cam = jnp.asarray(camera_position, jnp.float32).reshape(1, 3)
-    org = jnp.asarray(pixel_origin, jnp.float32).reshape(1, 2)
+    if light_budget == 0:
+        ltab = jnp.zeros((1, N_LCOL), jnp.float32)  # never read
+    lcount = n_live.reshape(1).astype(jnp.int32)
+    cam = jnp.asarray(camera_position, jnp.float32).reshape(3)
+    org = jnp.asarray(pixel_origin, jnp.float32).reshape(2)
     if slot_factor_tiles is None:
         n_slots = 0
-        sf_args = []
+        sft = jnp.ones((1, 1, th, tw), jnp.float32)  # never read
         sfi = jnp.full((1, nt), -1, jnp.int32)
     else:
         n_slots = slot_factor_tiles.shape[0]
         assert n_slots <= N_LCOL - 21, "shadow budget exceeds light-table pad"
         assert slot_factor_inv.shape == (n_slots, nt)
-        sf_args = [slot_factor_tiles[s] for s in range(n_slots)]
-        sfi = slot_factor_inv
+        sft = slot_factor_tiles
+        sfi = slot_factor_inv.astype(jnp.int32)
     has_texture = albedo_override is not None
     ovr = (albedo_override if has_texture
            else jnp.zeros((8, 1, th, tw), jnp.float32))
@@ -531,75 +531,61 @@ def fused_shade(rows, s_o, s_t, d_o, d_t, lights: LightArrays,
     use_tile_lights = tile_lights is not None
     if use_tile_lights:
         tlist, tcount = tile_lights
-        lb = tlist.shape[1]
-        tl_arg = tlist.reshape(nt, 1, lb)
-        tc_arg = tcount.reshape(nt, 1, 1).astype(jnp.int32)
-        tl_spec = pl.BlockSpec((1, 1, lb), lambda i, inv: (i, 0, 0),
-                               memory_space=pltpu.SMEM)
-        tc_spec = pl.BlockSpec((1, 1, 1), lambda i, inv: (i, 0, 0),
-                               memory_space=pltpu.SMEM)
+        tl_arg = tlist.astype(jnp.int32)
+        tc_arg = tcount.reshape(nt, 1).astype(jnp.int32)
+        tl_spec = pl.BlockSpec((None, tl_arg.shape[1]), lambda i: (i, 0))
+        tc_spec = pl.BlockSpec((None, 1), lambda i: (i, 0))
     else:
-        tl_arg = jnp.zeros((1, 1, 1), jnp.int32)
-        tc_arg = jnp.zeros((1, 1, 1), jnp.int32)
-        tl_spec = pl.BlockSpec((1, 1, 1), lambda i, inv: (0, 0, 0),
-                               memory_space=pltpu.SMEM)
-        tc_spec = pl.BlockSpec((1, 1, 1), lambda i, inv: (0, 0, 0),
-                               memory_space=pltpu.SMEM)
+        tl_arg = jnp.zeros((1, 1), jnp.int32)
+        tc_arg = jnp.zeros((1, 1), jnp.int32)
+        tl_spec = pl.BlockSpec((None, 1), lambda i: (0, 0))
+        tc_spec = pl.BlockSpec((None, 1), lambda i: (0, 0))
 
     kernel = functools.partial(_shade_kernel, tiles_x, th, tw,
-                               light_budget, float(width), float(height),
+                               float(width), float(height),
                                n_slots, has_texture, ovr_chans,
                                bool(with_norm) and has_texture,
                                bool(with_diss) and has_texture,
                                use_tile_lights, bool(spec_packed),
                                float(shin_const))
 
-    def vmem_tile(index_map):
-        return pl.BlockSpec((1, th, tw), index_map, memory_space=pltpu.VMEM)
+    def tile(i):
+        return (i, 0, 0)
 
-    def smem(shape):
-        return pl.BlockSpec(shape, lambda i, inv: (0,) * len(shape),
-                            memory_space=pltpu.SMEM)
+    def whole(x):
+        return pl.BlockSpec(x.shape, lambda i, n=x.ndim: (0,) * n)
 
-    def sf_spec(s):
-        # block-index the slot's compact factor buffer by the prefetch map
-        # (clamped: unmapped tiles load row 0, masked to lit in-kernel)
-        return vmem_tile(
-            lambda i, inv, s=s: (jnp.maximum(inv[s, i], 0), 0, 0))
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nt,),
-        in_specs=[
-            pl.BlockSpec((1, k, a), lambda i, inv: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            vmem_tile(lambda i, inv: (i, 0, 0)),
-            vmem_tile(lambda i, inv: (i, 0, 0)),
-            vmem_tile(lambda i, inv: (i, 0, 0)),
-            vmem_tile(lambda i, inv: (i, 0, 0)),
-            smem((light_budget, N_LCOL)),
-            smem((1, 1)),
-            tl_spec,
-            tc_spec,
-            smem((1, 3)),
-            smem((4, 4)),
-            smem((1, 2)),
-            *[sf_spec(s) for s in range(n_slots)],
-            pl.BlockSpec(
-                (2 * ovr_chans, 1, th, tw),
-                (lambda i, inv: (0, i, 0, 0)) if has_texture
-                else (lambda i, inv: (0, 0, 0, 0)),
-                memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((8, 1, th, tw), lambda i, inv: (0, i, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
     return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
+        grid=(nt,),
+        in_specs=[
+            pl.BlockSpec((None, k, a), tile),
+            pl.BlockSpec((None, th, tw), tile),
+            pl.BlockSpec((None, th, tw), tile),
+            pl.BlockSpec((None, th, tw), tile),
+            pl.BlockSpec((None, th, tw), tile),
+            whole(ltab),
+            whole(lcount),
+            tl_spec,
+            tc_spec,
+            whole(cam),
+            whole(inv_pv),
+            whole(org),
+            whole(sfi),
+            whole(sft),
+            pl.BlockSpec(
+                (ovr.shape[0], None, th, tw),
+                (lambda i: (0, i, 0, 0)) if has_texture
+                else (lambda i: (0, 0, 0, 0))),
+        ],
+        out_specs=[
+            pl.BlockSpec((8, None, th, tw), lambda i: (0, i, 0, 0)),
+        ],
         out_shape=[jax.ShapeDtypeStruct((8, nt, th, tw), jnp.float32)],
-        interpret=interpret,
-    )(sfi, rows, s_o, s_t, d_o, d_t, ltab, lcount, tl_arg, tc_arg, cam,
-      inv_pv, org, *sf_args, ovr)[0]
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=platform.interpret_kernels(),
+        name="fused_shade",
+    )(rows, s_o, s_t, d_o, d_t, ltab, lcount, tl_arg, tc_arg, cam,
+      jnp.asarray(inv_pv, jnp.float32), org, sfi, sft, ovr)[0]

@@ -62,13 +62,13 @@ def sample_cubemap(cubemap: jnp.ndarray, dirs: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Row-gather cubemap: the TPU-practical sampler
+# Row-gather cubemap sampler
 # ---------------------------------------------------------------------------
-# Generic per-pixel 4-tap gathers are the worst op on this TPU (each tap is
-# a scalar-memory gather); the atlas path's fix applies verbatim: precompute
-# every texel's 2x2 bilinear footprint as ONE contiguous 64-byte row, then a
-# full-screen sample is a single latency-bound row gather (~10 ns/row, ~6 ms
-# at 1080p) instead of four scattered taps. Costs 5.3x the cubemap's memory.
+# A generic per-pixel bilinear sample is four scattered taps; the atlas
+# path's fix applies verbatim: precompute every texel's 2x2 bilinear
+# footprint as ONE contiguous 64-byte row, then a full-screen sample is a
+# single row gather instead of four scattered taps. Costs 5.3x the
+# cubemap's memory.
 
 import dataclasses
 from functools import partial
@@ -169,8 +169,8 @@ def background_for(camera, cubemap, height: int, width: int,
 # ---------------------------------------------------------------------------
 # Star-geometry skybox: gather-free background for the space demo
 # ---------------------------------------------------------------------------
-# Per-pixel cubemap gathers are the single most expensive op on this TPU
-# path (XLA lowers generic gathers poorly); a starfield is really N point
+# Per-pixel cubemap gathers cost a full-screen gather; a starfield is
+# really N point
 # lights at infinity, so we project the N directions and SCATTER 2x2 splats
 # into the background — O(N) instead of O(H*W) work, and sharper stars.
 

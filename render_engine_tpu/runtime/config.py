@@ -53,9 +53,9 @@ class EngineConfig:
     # 32: "large" is orientation-dependent (the 8-corner AABB of a big
     # rotating model breathes across the halfspan threshold), so the live
     # count spikes — the demo's 10k-asteroid field peaked >8 and dropped
-    # 17 pairs over a 50-frame TPU bench at the old budget of 8. Cost is
-    # L extra candidate columns + an (L, CAP) bool brute table: lane-dim
-    # compares, sub-0.1 ms at L=32, CAP=16k.
+    # 17 pairs over a 50-frame bench at the old budget of 8. Cost is
+    # L extra candidate columns + an (L, CAP) bool brute table of
+    # elementwise compares.
     collision_large_budget: int = 32
 
     # scene setup: build_scene(engine) -> None, spawns initial entities and
@@ -83,8 +83,8 @@ class EngineConfig:
     # PCF factor subsampling (1 = full res; k cuts the dominant
     # latency-bound tap gather to 1/k^2 of the rows at a
     # penumbra-sharpness cost only — the factor upsamples in k x k
-    # blocks). Default 3 (r5 TPU sweep: headline 63.1 -> 67.3 FPS vs 2;
-    # quality A/B stills in debug_out/pcf_scale_{2,3}.png)
+    # blocks). Default 3 (quality A/B stills in
+    # debug_out/pcf_scale_{2,3}.png)
     shadow_pcf_scale: int = 3
     # user control over what casts shadows: bool[CAP] mask or trace-time
     # callable fn(world) -> bool[CAP] (the reference's user shadow draw

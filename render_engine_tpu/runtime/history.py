@@ -6,7 +6,7 @@ replay deterministically. Its wire format is a baseline bincode(ECS) +
 bincode(tree) plus per-frame FrameChange deltas with a byte-length index
 (src/threads/history_thread.rs:150-205, game_loader.rs:27-72).
 
-TPU-native redesign (SURVEY.md section 7): because the step is a pure
+Array-native redesign (SURVEY.md section 7): because the step is a pure
 function, recording the *inputs* is enough — baseline snapshot (world pytree
 + camera + settings) plus the per-frame (InputState, dt) stream reproduces
 every state bit-for-bit by re-running the step. This is strictly stronger

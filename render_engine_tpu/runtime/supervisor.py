@@ -6,7 +6,7 @@ hook that tags which thread died, and — crucially — the guarantee that a
 crash still flushes the history including the fatal frame, making every
 crash reproducible via playback (history_thread.rs:99-106).
 
-Single-process TPU analogue: a context manager around the frame loop that
+Single-process analogue: a context manager around the frame loop that
 (a) flushes the history log on ANY exit (graceful, exception, or signal),
 (b) tracks a heartbeat the caller can poll from another thread, and
 (c) optionally NaN-checks the world each frame (the fault-detection

@@ -1,7 +1,7 @@
 """Browser window for the headless engine: HTTP frame stream + input.
 
 The reference opens a GLFW window with a GL context and polls its key /
-cursor events (src/window/gl_window.rs). A TPU host has no display, so the
+cursor events (src/window/gl_window.rs). An accelerator host has no display, so the
 "window" is a tiny dependency-free HTTP server: the browser paints the
 latest rendered frame (PNG poll or multipart stream) and posts keyboard /
 mouse state back, which the host loop folds into each frame's InputState —

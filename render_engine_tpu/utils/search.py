@@ -1,14 +1,12 @@
 """Vectorized binary search without the sequential WHILE.
 
-``jnp.searchsorted`` lowers on TPU to a while-loop whose body is one fused
-gather per step — measured ~3 ms per call at (1024, 27) queries over a 16k
-table. Two replacements:
+``jnp.searchsorted`` can lower to a while-loop whose body is one fused
+gather per step. Two replacements:
 
-  * ``searchsorted_merge`` (preferred): two device sorts, zero gathers.
-    TPU 1-D gathers land in scalar memory (S(1) layouts) at ~0.4 ms per
-    55k-element gather; device sorts run ~200k keys in 0.24 ms, so sorting
-    the targets INTO the table and counting sources beats binary search by
-    ~10x. Exact ``side="left"`` semantics.
+  * ``searchsorted_merge`` (preferred): two device sorts, zero gathers —
+    sorting the targets INTO the table and counting sources replaces the
+    per-step gathers of a binary search. Exact ``side="left"``
+    semantics.
   * ``searchsorted_unrolled``: the plain unrolled binary search (one gather
     per step). Still ~matches jnp.searchsorted; kept for tiny inputs and as
     a cross-check.

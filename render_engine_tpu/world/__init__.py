@@ -1,6 +1,6 @@
 """Spatial world: uniform-grid section index + visibility culling.
 
-TPU-native redesign of the reference's BoundingBoxTree
+Array-native redesign of the reference's BoundingBoxTree
 (src/world/bounding_box_tree_v2.rs) and culling stack (src/culling/,
 src/flows/visible_world_flow.rs). The multi-level hashmap-of-world-sections
 becomes a sort-by-section-key index over the entity arrays; frustum/distance

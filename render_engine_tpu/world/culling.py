@@ -1,6 +1,6 @@
 """Visibility culling: frustum and distance tests over entity AABBs.
 
-TPU-native redesign of the reference culling stack:
+Array-native redesign of the reference culling stack:
 
   * ``RenderFrustumCuller`` (src/culling/render_frustum_culler.rs:18-119):
     6 planes from proj*view, 8-corner in/out AABB test  ->  the vectorized
@@ -9,8 +9,8 @@ TPU-native redesign of the reference culling stack:
     omnidirectional distance sphere around the camera so off-screen-but-near
     entities still step  ->  ``within_distance``.
   * ``VisibleWorldFlow`` (src/flows/visible_world_flow.rs:40-145) culled
-    *sections* and only then entities; on TPU we test every entity AABB in
-    one fused VPU op — O(CAP) vectorized beats section bookkeeping at any
+    *sections* and only then entities; here we test every entity AABB in
+    one fused vector op — O(CAP) vectorized beats section bookkeeping at any
     population the engine targets, and the result is exact rather than
     conservative.
 

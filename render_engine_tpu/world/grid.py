@@ -1,6 +1,6 @@
 """Uniform spatial grid over the world cube, as a sorted section-key index.
 
-TPU-native replacement for the reference's BoundingBoxTree
+Array-native replacement for the reference's BoundingBoxTree
 (src/world/bounding_box_tree_v2.rs:330-1398). The mapping:
 
   * ``UniqueWorldSectionId{level,x,z,y}`` (:21-109)  ->  a packed int32
@@ -162,10 +162,8 @@ def neighbor_candidate_rows(
     instead of entity ids: ``sorted_rows`` is a (CAP, C) f32 table already
     permuted into sorted-key order (``table[grid.perm]``).
 
-    PERF: one contiguous row gather stays in vector memory; gathering ids
-    and then scattering per-component (ids/alive/types) lands each gather in
-    scalar memory (S(1) layouts) at ~5x the cost — measured 1.6 ms vs
-    0.35 ms at (1024, 216) on the v5e.
+    PERF: one contiguous row gather replaces gathering ids and then one
+    gather per component (ids/alive/types).
     Returns ``(rows (Q, 27*b, C), valid (Q, 27*b))``.
     """
     from render_engine_tpu.utils.search import searchsorted_merge

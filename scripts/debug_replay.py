@@ -1,4 +1,6 @@
-"""Find the first diverging frame/component between live and replay."""
+"""Find the first diverging frame/component between live and replay.
+
+Runs on the CPU (a small engine; the golden jnp render path)."""
 
 import os
 import sys

@@ -23,11 +23,6 @@ import numpy as np
 
 
 def main():
-    import jax
-
-    if os.environ.get("SHADOW_AB_TPU") != "1":
-        jax.config.update("jax_platforms", "cpu")
-
     import jax.numpy as jnp
 
     from render_engine_tpu.demo.space_scene import build_space_engine

@@ -1,13 +1,12 @@
 """Quick end-to-end render smoke: cube + sphere + light -> PNG.
 
-Run: JAX_PLATFORMS=cpu python scripts/smoke_render.py
+Run: python scripts/smoke_render.py   (JAX_PLATFORMS=cpu for the CPU)
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np

@@ -1,18 +1,18 @@
 """Space-scene smoke: build the demo engine, run frames, dump a PNG,
 record + replay and compare hashes.
 
-Run: JAX_PLATFORMS=cpu python scripts/smoke_space.py
+Run: python scripts/smoke_space.py   (JAX_PLATFORMS=cpu for the CPU)
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
+from render_engine_tpu import platform
 from render_engine_tpu.demo.space_scene import build_space_engine
 from render_engine_tpu.logic.types import InputState, KEY_W
 from render_engine_tpu.render.frame import to_srgb_u8
@@ -22,6 +22,8 @@ from render_engine_tpu.utils.png import write_png
 
 
 def main():
+    platform.enable_compile_cache()
+    print(f"backend: {platform.backend()}")
     t0 = time.time()
     eng = build_space_engine(width=320, height=240, capacity=128,
                              num_asteroids=40, max_tris=8192)

@@ -1,6 +1,6 @@
 """Interactive terminal viewer: fly the demo scene with WASD + arrow keys.
 
-The reference opens a GLFW window (src/window/gl_window.rs); the TPU engine
+The reference opens a GLFW window (src/window/gl_window.rs); this engine
 renders offscreen, so the interactive path is a host loop feeding keys into
 the InputState and painting frames as ANSI half-block characters — a
 dependency-free "window". Run in any truecolor terminal:

@@ -1,7 +1,7 @@
 """Fly the demo scene from a browser — the GLFW-window analogue.
 
 Serves frames over HTTP and folds browser keyboard/mouse state into each
-frame's InputState (runtime/web_viewer.py). Run on the TPU host, then open
+frame's InputState (runtime/web_viewer.py). Run on the GPU host, then open
 the printed URL (port-forward if remote):
 
     python scripts/web_viewer.py [--width 640 --height 360] [--port 8000]

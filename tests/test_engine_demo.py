@@ -130,7 +130,7 @@ class TestSweepKnobs:
         assert base.shadow_lov_bias == 2  # measured default
         # defaults untouched when the knobs stay None
         assert base.shadow_update_interval == 1  # tiny CI target cadence
-        assert base.shadow_pcf_scale == 3  # r5 TPU-swept default
+        assert base.shadow_pcf_scale == 3  # the demo default
         assert base.render.light_tile_budget == 0
 
     def test_space_config_budget_knobs(self):

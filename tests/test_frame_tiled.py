@@ -58,7 +58,7 @@ def settings(backend):
         width=WIDTH, height=H, max_tris=256, backend=backend,
         raster=RasterConfig(tile_budget=32, max_tiles_per_tri=8,
                             global_budget=16, chunk=4),
-        max_point_lights=4,
+        max_point_lights=4, fused_shading=False,
     )
 
 
@@ -66,7 +66,7 @@ class TestTiledFramePath:
     def test_matches_jnp_path(self):
         w, bank, cam = scene()
         stars = SB.make_starfield(128, seed=5)
-        img_p = np.asarray(render_frame(w, cam, bank, settings("pallas"),
+        img_p = np.asarray(render_frame(w, cam, bank, settings("tiled"),
                                         cubemap=stars))
         img_j = np.asarray(render_frame(w, cam, bank, settings("jnp"),
                                         cubemap=stars))
@@ -79,7 +79,7 @@ class TestTiledFramePath:
 
     def test_tiled_path_emissive_and_transparency(self):
         w, bank, cam = scene()
-        img = np.asarray(render_frame(w, cam, bank, settings("pallas")))
+        img = np.asarray(render_frame(w, cam, bank, settings("tiled")))
         assert np.isfinite(img).all()
         # emissive star visible at right of center (clipped bright)
         assert img.max() > 0.9
@@ -95,7 +95,7 @@ class TestTiledFramePath:
         pixels, not just a few stray ones."""
         w, bank, cam = scene()
         stars = SB.make_starfield(128, seed=5)
-        s = settings("pallas")
+        s = settings("tiled")
         s_fused = dataclasses.replace(s, fused_shading=True)
         img_a = np.asarray(render_frame(w, cam, bank, s, cubemap=stars))
         img_b = np.asarray(render_frame(w, cam, bank, s_fused,
@@ -150,8 +150,8 @@ class TestTiledFramePath:
         w, bank, cam = build(8.0, 512.0)
         assert bank.uniform_shininess() is None
         img_j = np.asarray(render_frame(w, cam, bank, settings("jnp")))
-        img_p = np.asarray(render_frame(w, cam, bank, settings("pallas")))
-        s_fused = dataclasses.replace(settings("pallas"),
+        img_p = np.asarray(render_frame(w, cam, bank, settings("tiled")))
+        s_fused = dataclasses.replace(settings("tiled"),
                                       fused_shading=True)
         img_f = np.asarray(render_frame(w, cam, bank, s_fused))
         for other, name in ((img_p, "pallas"), (img_f, "fused")):
@@ -190,7 +190,7 @@ class TestTiledFramePath:
                 [[0, 0, 0], [0, 0, 0], [0, 0, 0], [0.3, -1.0, 0.2]],
                 np.float32),
         )
-        s = dataclasses.replace(settings("pallas"), fused_shading=True,
+        s = dataclasses.replace(settings("tiled"), fused_shading=True,
                                 max_point_lights=8)
         s_tl = dataclasses.replace(s, light_tile_budget=8)
         a = np.asarray(render_frame(w, cam, bank, s))
@@ -225,7 +225,7 @@ class TestTiledFramePath:
             light_direction=np.array(
                 [[0, 0, 0], [0, 0, 0], [0.0, -1.0, 0.0]], np.float32),
         )
-        s = settings("pallas")
+        s = settings("tiled")
         lights = LG.extract_lights(w, max_dir=4, max_point=8, max_spot=4)
         ltab, n_live = pack_lights(lights, 16)
         cfg = s.raster
@@ -253,8 +253,8 @@ class TestTiledFramePath:
 
     def test_tiled_path_self_deterministic(self):
         w, bank, cam = scene()
-        a = np.asarray(render_frame(w, cam, bank, settings("pallas")))
-        b = np.asarray(render_frame(w, cam, bank, settings("pallas")))
+        a = np.asarray(render_frame(w, cam, bank, settings("tiled")))
+        b = np.asarray(render_frame(w, cam, bank, settings("tiled")))
         np.testing.assert_array_equal(a, b)
 
     def test_fused_shading_with_shadows_matches_tall_path(self):
@@ -266,8 +266,8 @@ class TestTiledFramePath:
         # render a shadow map for the scene's point light (row 1 entity)
         shadow = SH.create_shadow_state(resolution=64, budget=2)
         shadow = SH.render_shadow_map(shadow, w, cam, bank, max_tris=256,
-                                      raster_cfg=settings("pallas").raster)
-        s = settings("pallas")
+                                      raster_cfg=settings("tiled").raster)
+        s = settings("tiled")
         s_fused = dataclasses.replace(s, fused_shading=True)
         img_a = np.asarray(render_frame(w, cam, bank, s,
                                         shadow_state=shadow))
@@ -288,8 +288,8 @@ class TestTiledFramePath:
         w, bank, cam = scene()
         shadow = SH.create_shadow_state(resolution=64, budget=2)
         shadow = SH.render_shadow_map(shadow, w, cam, bank, max_tris=256,
-                                      raster_cfg=settings("pallas").raster)
-        s_full = dataclasses.replace(settings("pallas"), fused_shading=True)
+                                      raster_cfg=settings("tiled").raster)
+        s_full = dataclasses.replace(settings("tiled"), fused_shading=True)
         # the scene covers a minority of the 4 tiles; 0.75 is unsaturated
         s_budget = dataclasses.replace(s_full, shadow_tile_budget=0.75,
                                        texture_tile_budget=0.75)

@@ -100,8 +100,7 @@ class TestKinematics:
         w2 = K.refresh_transforms(w, *UNIT_MODEL_AABB, dirty)
         np.testing.assert_allclose(w2["aabb_min"][0], [4.0, 5.0, 6.0])
         np.testing.assert_allclose(w2["aabb_max"][0], [6.0, 7.0, 8.0])
-        # TRS matrices materialize on demand only (TPU layout: (CAP,4,4)
-        # arrays pad 32x) — check the read path
+        # TRS matrices materialize on demand only — check the read path
         m = K.world_transforms(w2, np.array([0]))
         np.testing.assert_allclose(m[0, :3, 3], [5.0, 6.0, 7.0])
 

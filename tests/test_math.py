@@ -203,14 +203,14 @@ class TestCameraFrustum:
 
 
 class TestMatmulPrecision:
-    """The TPU's DEFAULT matmul precision rounds f32 inputs to bf16, which
+    """A DEFAULT-precision f32 matmul may run in reduced precision on an
+    accelerator (TF32 on NVIDIA tensor cores, bf16 passes elsewhere), which
     catastrophically cancels in the Gribb-Hartmann far-plane extraction
-    (r3 - r2 of proj@view is tiny, then normalized): measured ~143 world
-    units of far-plane error on the v5e, silently culling casters deep
-    inside a light volume. mm44/inv44 and the precision-pinned einsums
-    keep coordinate math exact on EVERY backend; this test asserts the
-    plane math matches an f64 reference wherever the suite runs (on CPU
-    it documents the contract; on TPU it catches the regression)."""
+    (r3 - r2 of proj@view is tiny, then normalized): reduced precision
+    moves the far plane by many world units, silently culling casters
+    deep inside a light volume. mm44/inv44 and the precision-pinned
+    einsums keep coordinate math exact on EVERY backend; this test asserts
+    the plane math matches an f64 reference wherever the suite runs."""
 
     def test_far_plane_matches_f64(self):
         from render_engine_tpu.world import culling
@@ -232,12 +232,11 @@ class TestMatmulPrecision:
                          r[3] + r[2], r[3] - r[2]])
         pl64 /= np.linalg.norm(pl64[:, :3], axis=-1, keepdims=True)
         # f32 round-off through the pinned compose stays under 1e-2 world
-        # units even on the cancellation-amplified far plane; bf16 measured
-        # ~143 there
+        # units even on the cancellation-amplified far plane
         np.testing.assert_allclose(planes, pl64, atol=1e-2)
 
         # a caster 290 units down the axis, 0.37 rad off it, must test
-        # inside (the exact configuration the TPU miscull dropped)
+        # inside (the configuration a reduced-precision compose drops)
         ax = d
         lat = np.cross(ax, [0.0, 1.0, 0.0])
         lat /= np.linalg.norm(lat)

@@ -228,11 +228,11 @@ map_Ks spec.png
             pytest.skip("native toolchain unavailable")
         native = OL._load_obj_native(str(p))
         assert native is not None, "native parse rejected a valid file"
-        os.environ["RE_TPU_NATIVE"] = "0"
+        os.environ["RE_NATIVE"] = "0"
         try:
             py = OL.load_obj(str(p))
         finally:
-            os.environ.pop("RE_TPU_NATIVE", None)
+            os.environ.pop("RE_NATIVE", None)
         v, n, uv, tris, tri_slot, mats = native
         n = OL._fill_missing_normals(v, n.copy(), tris)
         return (v, n, uv, tris, tri_slot, mats), py

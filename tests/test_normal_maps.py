@@ -72,7 +72,7 @@ def _settings(backend, fused):
         fused_shading=fused, texture_tile_budget=1.0)
 
 
-_PATHS = (("jnp", False), ("pallas", False), ("pallas", True))
+_PATHS = (("jnp", False), ("tiled", False), ("tiled", True))
 
 
 class TestNormalMaps:

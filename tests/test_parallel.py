@@ -12,8 +12,15 @@ from render_engine_tpu.parallel.mesh import (
     world_sharding,
 )
 
-needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
-                             reason="needs 8 virtual devices")
+
+@pytest.fixture
+def eight_devices():
+    """Skip unless JAX has 8 devices (decided at run time)."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+
+
+needs_8 = pytest.mark.usefixtures("eight_devices")
 
 # one engine config for every test here -> a single session-cached build
 PAR_KW = dict(width=128, height=64, capacity=64, num_asteroids=8,
@@ -137,7 +144,7 @@ class TestShardedRender:
         from render_engine_tpu.render.frame import render_frame
 
         eng = engine_factory(**PAR_KW)
-        s = dataclasses.replace(eng.config.render, backend="pallas",
+        s = dataclasses.replace(eng.config.render, backend="tiled",
                                 fused_shading=True)
         single = np.asarray(render_frame(
             eng.world, eng.camera, eng.bank, s, cubemap=eng.cubemap,
@@ -151,7 +158,7 @@ class TestShardedRender:
 
         fn = jax.jit(lambda w, c: render_frame_sharded(
             w, c, bank, s, mesh, cubemap=cubemap, shadow_state=shadow,
-            systems=systems, interpret=True))
+            systems=systems))
         with mesh:
             img = np.asarray(fn(world, cam))
         assert img.shape == single.shape
@@ -168,7 +175,7 @@ class TestShardedRender:
         from render_engine_tpu.render.frame import render_frame
 
         eng = engine_factory(**PAR_KW)
-        s = dataclasses.replace(eng.config.render, backend="pallas",
+        s = dataclasses.replace(eng.config.render, backend="tiled",
                                 fused_shading=True, light_tile_budget=8)
         s_full = dataclasses.replace(s, light_tile_budget=0)
         single = np.asarray(render_frame(
@@ -188,7 +195,7 @@ class TestShardedRender:
 
         fn = jax.jit(lambda w, c: render_frame_sharded(
             w, c, bank, s, mesh, cubemap=cubemap, shadow_state=shadow,
-            systems=systems, interpret=True))
+            systems=systems))
         with mesh:
             img = np.asarray(fn(world, cam))
         diff = np.abs(img - single).max(axis=-1)
@@ -218,7 +225,7 @@ class TestShardedRender:
             (RenderSystemBuilder("cb")
              .with_models(*range(eng.bank.num_models))
              .with_draw_function(draw).build(),), eng.bank)
-        s = dataclasses.replace(eng.config.render, backend="pallas",
+        s = dataclasses.replace(eng.config.render, backend="tiled",
                                 fused_shading=True)
         single = np.asarray(render_frame(
             eng.world, eng.camera, eng.bank, s, cubemap=eng.cubemap,
@@ -230,8 +237,7 @@ class TestShardedRender:
         bank, cubemap = eng.bank, eng.cubemap
 
         fn = jax.jit(lambda w, c: render_frame_sharded(
-            w, c, bank, s, mesh, cubemap=cubemap, systems=systems,
-            interpret=True))
+            w, c, bank, s, mesh, cubemap=cubemap, systems=systems))
         with mesh:
             img = np.asarray(fn(world, cam))
         diff = np.abs(img - single).max(axis=-1)
@@ -263,7 +269,7 @@ class TestShardedRender:
              .with_models(*range(eng.bank.num_models))
              .write_uniform("tone", 0.8)
              .with_fragment_shading(fancy).build(),), eng.bank)
-        s = dataclasses.replace(eng.config.render, backend="pallas",
+        s = dataclasses.replace(eng.config.render, backend="tiled",
                                 fused_shading=True)
         single = np.asarray(render_frame(
             eng.world, eng.camera, eng.bank, s, cubemap=eng.cubemap,
@@ -275,8 +281,7 @@ class TestShardedRender:
         bank, cubemap = eng.bank, eng.cubemap
 
         fn = jax.jit(lambda w, c: render_frame_sharded(
-            w, c, bank, s, mesh, cubemap=cubemap, systems=systems,
-            interpret=True))
+            w, c, bank, s, mesh, cubemap=cubemap, systems=systems))
         with mesh:
             img = np.asarray(fn(world, cam))
         assert img.shape == single.shape
@@ -294,7 +299,7 @@ class TestShardedRender:
 
         eng = engine_factory(**PAR_KW)
         assert eng.atlas is not None, "demo scene should carry an atlas"
-        s = dataclasses.replace(eng.config.render, backend="pallas",
+        s = dataclasses.replace(eng.config.render, backend="tiled",
                                 fused_shading=True, texture_tile_budget=1.0)
         single = np.asarray(render_frame(
             eng.world, eng.camera, eng.bank, s, cubemap=eng.cubemap,
@@ -309,7 +314,7 @@ class TestShardedRender:
 
         fn = jax.jit(lambda w, c: render_frame_sharded(
             w, c, bank, s, mesh, cubemap=cubemap, atlas=atlas,
-            shadow_state=shadow, systems=systems, interpret=True))
+            shadow_state=shadow, systems=systems))
         with mesh:
             img = np.asarray(fn(world, cam))
         assert img.shape == single.shape

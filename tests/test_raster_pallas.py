@@ -1,5 +1,5 @@
-"""Pallas rasterizer: bit-equivalence with the jnp reference (interpret mode
-on CPU; the same kernel compiles on TPU)."""
+"""Tile raster kernel: bit-equivalence with the jnp reference (interpret mode
+on CPU; the same kernel compiles through Triton on the GPU)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,7 +20,7 @@ CFG = RasterConfig(tile_budget=16, max_tiles_per_tri=8, global_budget=8,
 
 def both(batch, h=H, w=WIDTH, cfg=CFG):
     d1, w1 = rasterize_depth_winner(batch, h, w, cfg)
-    d2, w2 = rasterize_depth_winner_pallas(batch, h, w, cfg, interpret=True)
+    d2, w2 = rasterize_depth_winner_pallas(batch, h, w, cfg)
     return (np.asarray(d1), np.asarray(w1)), (np.asarray(d2), np.asarray(w2))
 
 
@@ -62,7 +62,7 @@ class TestPallasEquivalence:
         batch = dataclasses.replace(batch, transparent=transparent)
 
         d, w, td, tw_ = rasterize_two_pass_pallas(
-            batch, H, WIDTH, CFG, interpret=True)
+            batch, H, WIDTH, CFG)
         d1, w1 = rasterize_depth_winner(batch, H, WIDTH, CFG,
                                         ~batch.transparent)
         d2, w2 = rasterize_depth_winner(batch, H, WIDTH, CFG,
@@ -73,7 +73,7 @@ class TestPallasEquivalence:
         np.testing.assert_allclose(np.asarray(td), np.asarray(d2), atol=1e-6)
 
     def test_full_pallas_gbuffer_path(self):
-        """render_gbuffers_pallas (one-hot MXU resolve) matches the jnp
+        """render_gbuffers_pallas (winner-row gather resolve) matches the jnp
         resolve on a real scene."""
         import jax.numpy as jnp
 
@@ -97,8 +97,7 @@ class TestPallasEquivalence:
         batch = to_screen(build_triangle_batch(w, bank, cam, max_tris=64),
                           WIDTH, H)
         gb_p, extras, tgb, textras = render_gbuffers_pallas(
-            batch, bank, H, WIDTH, CFG, interpret=True,
-            proj_view=cam.proj_view())
+            batch, bank, H, WIDTH, CFG, proj_view=cam.proj_view())
         gb_j = render_gbuffer(batch, bank, H, WIDTH, CFG,
                               tri_mask=~batch.transparent)
         # Cross-implementation FP association (FMA/fusion) can flip coverage
@@ -143,8 +142,8 @@ class TestPallasEquivalence:
         batch = to_screen(
             build_triangle_batch(w, bank, front_camera(), max_tris=64),
             WIDTH, H)
-        a = render_gbuffers_pallas(batch, bank, H, WIDTH, CFG, interpret=True)
-        b = render_gbuffers_pallas(batch, bank, H, WIDTH, CFG, interpret=True)
+        a = render_gbuffers_pallas(batch, bank, H, WIDTH, CFG)
+        b = render_gbuffers_pallas(batch, bank, H, WIDTH, CFG)
         import jax
 
         for la, lb in zip(jax.tree_util.tree_leaves(a),

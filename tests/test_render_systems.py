@@ -158,7 +158,8 @@ class TestCompiledSystems:
 
     def _pallas_settings(self):
         return RenderSettings(
-            width=WIDTH, height=H, max_tris=64, backend="pallas",
+            width=WIDTH, height=H, max_tris=64, backend="tiled",
+            fused_shading=False,
             raster=RasterConfig(tile_budget=16, max_tiles_per_tri=8,
                                 global_budget=8, chunk=4),
         )
@@ -539,7 +540,7 @@ class TestCompiledSystems:
 
     def _fused_settings(self):
         return RenderSettings(
-            width=WIDTH, height=H, max_tris=64, backend="pallas",
+            width=WIDTH, height=H, max_tris=64, backend="tiled",
             fused_shading=True,
             raster=RasterConfig(tile_budget=16, max_tiles_per_tri=8,
                                 global_budget=8, chunk=4),

@@ -1,7 +1,7 @@
 """Unit tests for utils/search — the searchsorted replacements.
 
-These are the perf-model primitives (CLAUDE.md: jnp.searchsorted lowers to
-a sequential WHILE on TPU); grid binning and raster window fills depend on
+These are the perf-model primitives (jnp.searchsorted can lower to
+a sequential while loop); grid binning and raster window fills depend on
 their EXACT side="left" semantics, so pin them against np.searchsorted
 directly, including duplicate-heavy and boundary inputs.
 """

@@ -409,7 +409,7 @@ class TestFusedTexturingAndSpecular:
         from render_engine_tpu.render.frame import RenderSettings
 
         return RenderSettings(
-            width=128, height=32, max_tris=256, backend="pallas",
+            width=128, height=32, max_tris=256, backend="tiled",
             raster=RasterConfig(tile_budget=48, max_tiles_per_tri=8,
                                 global_budget=16, chunk=4),
             max_point_lights=4, **kw,
@@ -586,8 +586,8 @@ class TestFusedTexturingAndSpecular:
                 fused_shading=fused, texture_tile_budget=1.0)
 
         outs = []
-        for backend, fused in (("jnp", False), ("pallas", False),
-                               ("pallas", True)):
+        for backend, fused in (("jnp", False), ("tiled", False),
+                               ("tiled", True)):
             outs.append(np.asarray(render_frame(
                 w, cam, bank, settings(backend, fused), atlas=atlas)))
         img = outs[0]
@@ -641,8 +641,8 @@ class TestFusedTexturingAndSpecular:
                 fused_shading=fused, texture_tile_budget=1.0)
 
         outs = []
-        for backend, fused in (("jnp", False), ("pallas", False),
-                               ("pallas", True)):
+        for backend, fused in (("jnp", False), ("tiled", False),
+                               ("tiled", True)):
             outs.append(np.asarray(render_frame(
                 w, cam, bank, settings(backend, fused), atlas=atlas)))
         img = outs[0]
@@ -729,8 +729,8 @@ class TestFusedTexturingAndSpecular:
         w_w, bank_w, cam, atlas_w = build(True)
         w_b, bank_b, _, atlas_b = build(False)
         outs_w, outs_b = [], []
-        for backend, fused in (("jnp", False), ("pallas", False),
-                               ("pallas", True)):
+        for backend, fused in (("jnp", False), ("tiled", False),
+                               ("tiled", True)):
             s = settings(backend, fused)
             outs_w.append(np.asarray(
                 render_frame(w_w, cam, bank_w, s, atlas=atlas_w)))
